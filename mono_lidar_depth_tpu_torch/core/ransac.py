@@ -1,0 +1,143 @@
+"""Batched RANSAC ground plane (counterpart of core/ransac.py).
+
+S pre-drawn 3-point hypotheses are scored at once: residuals over the
+subsample are one [S_sub, S] fp32 matmul, the best hypothesis is the
+argmax inlier count, and an LS refit refines it.  The random draws come
+from a `torch.Generator`; `jax.random` streams cannot be reproduced in
+PyTorch, so callers (the parity tests) may inject the subsample indices
+and the hypothesis picks instead.
+
+The semantic ground plane (`fit_ground_plane_semantic`) is not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from .geometry import cross3, dot3, norm3, smallest_eigenvector_sym3x3
+
+
+class GroundPlane(NamedTuple):
+    """Ground-plane estimate in the lidar frame."""
+
+    coeffs: torch.Tensor  # [4] (a, b, c, d), |n| = 1
+    inlier_mask: torch.Tensor  # [P] bool over the raw cloud
+    ok: torch.Tensor  # [] bool
+
+
+class RansacDraws(NamedTuple):
+    """Pre-drawn RANSAC randomness."""
+
+    sub_idx: torch.Tensor  # [S_sub] int indices into the cloud
+    picks: torch.Tensor  # [S, 3] int indices into the subsample
+
+
+def draw_ransac(valid: torch.Tensor, generator: torch.Generator,
+                num_hypotheses: int, subsample: int) -> RansacDraws:
+    """Uniform subsample indices over the valid prefix (with
+    replacement) and hypothesis picks, without a host sync."""
+    dev = valid.device
+    n = torch.clamp(valid.sum(), min=1)
+    u = torch.rand(subsample, generator=generator, device=dev)
+    sub_idx = torch.minimum((u * n).long(), n - 1)
+    picks = torch.randint(0, subsample, (num_hypotheses, 3),
+                          generator=generator, device=dev)
+    return RansacDraws(sub_idx, picks)
+
+
+def _ls_plane(points: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Weighted LS plane through weighted points -> coeffs [4]."""
+    wsum = w.sum()
+    c = (points * w[:, None]).sum(0) / torch.where(wsum == 0, 1.0, wsum)
+    centered = (points - c) * torch.sqrt(w)[:, None]
+    n = smallest_eigenvector_sym3x3(centered.T @ centered)
+    return torch.cat([n, -dot3(n, c)[None]])
+
+
+def fit_ground_plane_ransac(
+    points_lidar: torch.Tensor,
+    valid: torch.Tensor,
+    generator: torch.Generator | None = None,
+    *,
+    sub_idx: torch.Tensor | None = None,
+    picks: torch.Tensor | None = None,
+    distance_threshold: float = 0.3,
+    min_z: float = -10000.0,
+    max_z: float = 10000.0,
+    num_hypotheses: int = 1024,
+    subsample: int = 6000,
+    axis_max_angle_deg: float = 10.0,
+    use_refinement: bool = True,
+    refinement_threshold: float = 10.2,
+    inliers_from_full_cloud: bool = False,
+) -> GroundPlane:
+    """Fit the ground plane to a lidar cloud [P, 3] with batched RANSAC.
+
+    The draws come from `generator`, unless both `sub_idx` [subsample]
+    and `picks` [num_hypotheses, 3] are given."""
+    P = points_lidar.shape[0]
+    pts = points_lidar.to(torch.float32)
+
+    zmask = valid
+    if min_z > -1001.0:  # pass-through filter, RansacPlane.cpp:58-64
+        zmask = zmask & (points_lidar[:, 2] > min_z) & (
+            points_lidar[:, 2] < max_z)
+
+    if sub_idx is None or picks is None:
+        if generator is None:
+            raise ValueError("pass a generator or both sub_idx and picks")
+        sub_idx, picks = draw_ransac(valid, generator, num_hypotheses,
+                                     subsample)
+    sub_idx = sub_idx.long()
+    picks = picks.long()
+    sub_pts = pts[sub_idx]  # [S_sub, 3]
+    sub_ok = zmask[sub_idx]
+    n_usable = zmask.sum()
+
+    tri = sub_pts[picks]  # [S, 3, 3]
+    tri_ok = sub_ok[picks].all(dim=-1)
+    n_raw = cross3(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    n_norm = norm3(n_raw)
+    n_unit = n_raw / torch.where(n_norm < 1e-12, 1.0, n_norm)[:, None]
+    d = -dot3(n_unit, tri[:, 0])  # [S]
+
+    cos_eps = math.cos(math.radians(axis_max_angle_deg))
+    hyp_ok = tri_ok & (torch.abs(n_unit[:, 2]) >= cos_eps) & (n_norm >= 1e-12)
+
+    # Plain fp32 product (TF32 is off, see precision.py).
+    res = torch.abs(sub_pts @ n_unit.T + d[None, :])  # [S_sub, S]
+    inl = (res < distance_threshold) & sub_ok[:, None]
+    counts = torch.where(hyp_ok, inl.sum(0), -1)
+    best = torch.argmax(counts)
+    best_coeffs = torch.cat([n_unit[best], d[best][None]])
+    best_inl_sub = inl[:, best]
+
+    # `.index_put_` below has duplicate indices (the subsample is drawn
+    # with replacement).  That is safe: the value written for an index
+    # depends only on the point it names, so every duplicate writes the
+    # same value and the order of the writes does not matter.
+    inlier_mask = torch.zeros(P, dtype=torch.bool, device=pts.device)
+    if use_refinement:
+        refined = _ls_plane(sub_pts, best_inl_sub.to(torch.float32))
+        if inliers_from_full_cloud:
+            dist_full = torch.abs(pts @ refined[:3] + refined[3])
+            inlier_mask = zmask & (dist_full < refinement_threshold)
+        else:
+            # Reference: within refinement distance of the UNrefined
+            # model, over the subsample only.
+            dist_sub = torch.abs(dot3(sub_pts, best_coeffs[:3])
+                                 + best_coeffs[3])
+            sel = sub_ok & (dist_sub < refinement_threshold)
+            inlier_mask.index_put_((sub_idx,), sel)
+        coeffs = refined
+    else:
+        coeffs = best_coeffs
+        inlier_mask.index_put_((sub_idx,), best_inl_sub)
+
+    ok = (n_usable >= 3) & (counts[best] > 0)
+    coeffs = coeffs * torch.where(coeffs[2] < 0, -1.0, 1.0)  # normal z >= 0
+    return GroundPlane(coeffs=coeffs, inlier_mask=inlier_mask & valid, ok=ok)

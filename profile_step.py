@@ -1,0 +1,144 @@
+#!/usr/bin/env python3
+"""Where the time of the full-size odometry step goes, on one CUDA GPU.
+
+    python3 profile_step.py
+
+Runs the port's main path on chip_smoke.py's scene (the reference
+defaults at the KITTI size, bench.py's synthetic clouds and tracks) for
+11 steps after `prime_state`:
+
+  * steps 1-4 warm up;
+  * steps 5-8 run alone, timed with CUDA events (no profiler, no extra
+    syncs): the step median;
+  * steps 9-11 run under torch.profiler, again with no extra syncs:
+    the device's busy time per step (every kernel, copy and fill),
+    device activities per step, and for each stage of the step its host
+    time and the device time of the kernels it launched.
+
+The idle share is 1 - busy / step median, against the unprofiled median.
+Stages are labelled by wrapping the functions the step calls (in
+tracks/pipeline.py and vo/pipeline.py) for the profiled steps only.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import sys
+
+import numpy as np
+
+import chip_smoke as cs
+
+WARM, TIMED, PROFILED = 4, 4, 3
+# (module, function, label): the stages of one odometry step.
+STAGES = [("tracks", "_ground_plane", "ransac"),
+          ("tracks", "rasterize_cloud", "rasterize"),
+          ("tracks", "match_tracks", "match_tracks"),
+          ("tracks", "estimate_depths_pair", "depth_pair"),
+          ("tracks", "update_tracks", "update_tracks"),
+          ("vo", "estimate_pose_gn", "pose_gn"),
+          ("vo", "run_ba", "window_ba")]
+
+
+@contextlib.contextmanager
+def labelled_stages():
+    """Wrap each stage function in a profiler range named after it."""
+    import torch
+    from mono_lidar_depth_tpu_torch.tracks import pipeline as tracks
+    from mono_lidar_depth_tpu_torch.vo import pipeline as vo
+
+    modules = {"tracks": tracks, "vo": vo}
+    saved = []
+    for mod_name, fn_name, label in STAGES:
+        mod = modules[mod_name]
+        fn = getattr(mod, fn_name)
+        saved.append((mod, fn_name, fn))
+
+        def wrapped(*args, _fn=fn, _label=label, **kwargs):
+            with torch.profiler.record_function(_label):
+                return _fn(*args, **kwargs)
+
+        setattr(mod, fn_name, wrapped)
+    try:
+        yield
+    finally:
+        for mod, fn_name, fn in saved:
+            setattr(mod, fn_name, fn)
+
+
+def main() -> int:
+    import torch
+    import mono_lidar_depth_tpu_torch as T
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device", file=sys.stderr)
+        return 1
+    card = cs.card_line()
+    sc = cs.bench_scene(frames=WARM + TIMED + PROFILED)
+    state = cs.prime(sc)
+
+    def step(frame):
+        nonlocal state
+        state, *_ = T.odometry_step(sc.cfg, sc.ocfg, sc.cam,
+                                    sc.lidar_to_cam, state, frame)
+
+    frames = iter(sc.inputs)
+    for _ in range(WARM):
+        step(next(frames))
+    events = []
+    for _ in range(TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(next(frames))
+        stop.record()
+        events.append((start, stop))
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    median = float(np.median(step_ms))
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with labelled_stages(), profile(activities=acts) as prof:
+        for _ in range(PROFILED):
+            step(next(frames))
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    labels = {label for *_, label in STAGES}
+    # Device activities: CUDA rows other than the ranges' own annotations.
+    dev_rows = [e for e in rows
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.key not in labels]
+    busy = sum(e.self_device_time_total for e in dev_rows) / 1e3 / PROFILED
+    n_dev = sum(e.count for e in dev_rows) / PROFILED
+
+    print(f"odometry step, {TIMED} steps alone (CUDA events): "
+          f"median {median:.3f} ms, all {[round(x, 3) for x in step_ms]} "
+          f"[{card}]")
+    print(f"profiled steps: device busy {busy:.3f} ms/step, "
+          f"{n_dev:.0f} device activities/step; idle share against the "
+          f"unprofiled median {1 - busy / median:.3f} [{card}]")
+    print("stage | calls/step | host ms/step | device ms/step")
+    staged = 0.0
+    for _, _, label in STAGES:
+        row = next((e for e in rows if e.key == label
+                    and e.device_type == torch.autograd.DeviceType.CPU), None)
+        if row is None:
+            print(f"{label} | 0 | - | -")
+            continue
+        dev_ms = row.device_time_total / 1e3 / PROFILED
+        staged += dev_ms
+        print(f"{label} | {row.count / PROFILED:g} | "
+              f"{row.cpu_time_total / 1e3 / PROFILED:.3f} | {dev_ms:.3f}")
+    print(f"device time inside the stages: {staged:.3f} of {busy:.3f} "
+          f"ms/step")
+    print("top device activities by time (ms/step, count/step):")
+    for e in sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3 / PROFILED:8.3f} "
+              f"{e.count / PROFILED:6.0f}  {e.key[:90]}")
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,72 @@
+"""Shared helpers for the PyTorch-port parity tests (tests/test_torch_*.py).
+
+The JAX side runs on JAX's CPU backend (tests/conftest.py); the port
+runs on the CPU, where every kernel wrapper takes its plain PyTorch
+version.  Inputs are made with numpy from a seed and handed to both.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from mono_lidar_depth_tpu_torch.convert import state_from_numpy
+
+# Tier-1 runs several pytest workers: one torch thread each.
+torch.set_num_threads(1)
+
+# The small size the parity tests run at.
+SMALL = dict(max_points=8192, max_features=256, image_width=384,
+             image_height=128, ransac_num_hypotheses=128,
+             ransac_subsample_points=1024)
+# lidar frame x forward, y left, z up -> camera z forward, x right, y down
+R_LC = np.array([[0, -1, 0], [0, 0, -1], [1, 0, 0]], dtype=np.float32)
+T_LC = np.array([0.0, -0.08, 0.27], dtype=np.float32)
+CAMERA = dict(width=384, height=128, focal_length=240.0, cx=192.0, cy=64.0)
+
+
+def to_numpy(tree):
+    """JAX tree -> the same tree with numpy leaves."""
+    return jax.tree.map(np.asarray, tree)
+
+
+def to_port(tree):
+    """JAX tree -> the port's tree on the CPU."""
+    return state_from_numpy(to_numpy(tree), "cpu")
+
+
+def jax_ransac_draws(key, valid, subsample: int, num_hypotheses: int):
+    """The draws fit_ground_plane_ransac makes from `key`, computed as
+    mono_lidar_depth_tpu/core/ransac.py does, as int64 tensors."""
+    k_sub, k_hyp = jax.random.split(key)
+    n_valid = jnp.sum(jnp.asarray(valid))
+    sub_idx = jax.random.randint(k_sub, (subsample,), 0,
+                                 jnp.maximum(n_valid, 1))
+    picks = jax.random.randint(k_hyp, (num_hypotheses, 3), 0, subsample)
+    return (torch.from_numpy(np.asarray(sub_idx).astype(np.int64)),
+            torch.from_numpy(np.asarray(picks).astype(np.int64)))
+
+
+def assert_trees_equal(got, want, path="", atol=0.0, rtol=0.0):
+    """Field-by-field comparison of a port tree (numpy leaves) and a JAX
+    tree (numpy leaves) with the same field names."""
+    if hasattr(want, "_fields"):
+        assert got._fields == want._fields, path
+        for name in want._fields:
+            assert_trees_equal(getattr(got, name), getattr(want, name),
+                               f"{path}.{name}", atol, rtol)
+        return
+    if want is None:
+        assert got is None, path
+        return
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (path, got.shape, want.shape)
+    if atol == 0.0 and rtol == 0.0 or want.dtype.kind in "biu":
+        mism = np.argwhere(got != want)
+        assert mism.size == 0, (f"{path}: {len(mism)} mismatches, first at "
+                                f"{mism[:3].tolist()}")
+    else:
+        np.testing.assert_allclose(got, want, atol=atol, rtol=rtol,
+                                   err_msg=path)
