@@ -6,12 +6,17 @@
 Phases, each printed on its own lines:
 
   1. device  — the card's name and power limit; TF32 is off.
-  2. build   — nvcc builds the kernel library from csrc/ (sm_90a).
-  3. kernels — every kernel of the main path against its plain PyTorch
-               version on the card, bit-exact, at the main path's
-               shapes and edge starts; the device time of both from
-               torch.profiler, and their wrapper time (CUDA events
-               around back-to-back calls, host launch cost included).
+  2. build   — nvcc builds the kernel libraries from csrc/ (sm_90a),
+               one process per source, all started together.
+  3. kernels — every kernel of the main paths against its plain PyTorch
+               version on the card at the main paths' shapes: the window
+               crop bit-exact at edge starts; the fused Lucas-Kanade
+               level within LK_TOL_PX at the four level shapes of a KITTI
+               pyramid, with features on and past the borders; the
+               device time of both from torch.profiler, their wrapper
+               time (CUDA events around back-to-back calls, host launch
+               cost included) and, for the LK level, one `grid_sample`
+               of the same patch taps as a library yardstick.
   4. main    — `prime_state` then FRAMES odometry steps at the full
                KITTI size (131,072-point cloud, 2,048 features,
                384x1248 grid, 1,024 RANSAC hypotheses over 6,000
@@ -23,6 +28,15 @@ Phases, each printed on its own lines:
   5. agree   — a small metric world run on the card and on the CPU
                (the plain versions) from the same RANSAC draws: poses
                and codes agree, poses track the ground truth.
+  6. images  — the image-fed path at the full KITTI size: IMAGE_FRAMES
+               frames of the synthetic sequence (1226x370 images, 32x900
+               lidar scans) rendered in memory, then `init_tracker` and
+               per frame `track_frame` + `odometry_step` through
+               `frame_inputs`, with both kernels' launch counts read
+               after every frame; state on the card, no host sync inside
+               `track_frame`, ids persistent, poses finite and on the
+               ground truth's path, and the card in agreement with the
+               CPU's plain versions frame by frame.
 
 The kernels' JSON record and the card line (nvidia-smi's name and power
 limit) come just before the last line, which is {"ok": true, "device":
@@ -43,8 +57,26 @@ import numpy as np
 
 FRAMES = 8  # odometry steps of the main-path run
 SEED = 0  # seed of the main-path scene and RANSAC generator
+IMAGE_FRAMES = 9  # rendered frames of the image-fed run (8 steps)
 REPLACES = "mono_lidar_depth_tpu/core/pallas_windows.py:95"
 SOURCE = "mono_lidar_depth_tpu_torch/csrc/windows.cu"
+LK_SOURCE = "mono_lidar_depth_tpu_torch/csrc/lk_level.cu"
+# The tracker's settings on the image-fed path (the eval harness's).
+LEVELS, PATCH, LK_ITERS, MIN_DET = 4, 9, 8, 1e-4
+# The fused LK level against its plain version: every elementwise step is
+# the plain version's to the bit, the 81-term sums run in another order,
+# and 8 dependent iterations carry that along.  Lanes `ok` in both must
+# end within LK_TOL_PX of each other, and `ok` must agree on LK_OK_SHARE
+# of the lanes.
+LK_TOL_PX = 1e-3
+LK_OK_SHARE = 0.999
+# Share of the 2,048 lanes that `track_frame` emits per frame on the
+# synthetic sequence: the floor sits just under the measured minimum.
+EMIT_FLOOR = 0.6
+# Published peaks of one H100 SXM: device memory rate and fp32 rate
+# outside the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
 # Share of Success + SuccessRoad codes over all association outcomes of
 # the main-path run: 0.2892 measured on an H100 80GB HBM3 at 700 W
 # (PERF.md); the floor sits below it.
@@ -149,9 +181,11 @@ def phase_kernels(card: str) -> dict:
     rng = np.random.default_rng(1)
     H, W, N = 384, 1248, 2048
     cases = [(2, H, W, 11, 8), (2, H, W, 15, 14), (3, H, W, 11, 8),
-             (3, H, W, 15, 14), (2, H, 1280, 11, 8), (1, H, W, 12, 12)]
+             (3, H, W, 15, 14), (2, H, 1280, 11, 8), (1, H, W, 12, 12),
+             # the tracker's ZNCC patches: finest level 370x1226, pad 10
+             (1, 390, 1246, 10, 10)]
     worst = 0.0
-    step_ms = step_plain_ms = 0.0
+    step_ms = step_plain_ms = step_bound_ms = 0.0
     for C, h, w, Ky, Kx in cases:
         stack = torch.from_numpy(
             rng.normal(size=(C, h, w)).astype(np.float32)).to(dev)
@@ -177,18 +211,162 @@ def phase_kernels(card: str) -> dict:
                         device_ms(plain))
         wrap_ms, wrap_plain_ms = time_ms(kernel), time_ms(plain)
         out_mb = N * C * Ky * Kx * 4 / 1e6
+        # Bound: a pure copy, so bytes: the stack and the starts read
+        # once, the windows written once, over the device-memory rate.
+        bound = ((C * h * w + 2 * N + N * C * Ky * Kx) * 4
+                 / PEAK_BYTES_S * 1e3)
         log(f"phase 3 kernels: slice_windows C={C} {h}x{w} N={N} "
             f"window {Ky}x{Kx}: bit-exact; device time kernel {ms:.4f} ms "
-            f"({out_mb / ms:.1f} GB/s of output), plain {plain_ms:.4f} ms; "
+            f"({out_mb / ms:.1f} GB/s of output), plain {plain_ms:.4f} ms, "
+            f"bound {bound:.5f} ms by bytes; "
             f"wrapper time (CUDA events, back-to-back calls) kernel "
             f"{wrap_ms:.4f} ms, plain {wrap_plain_ms:.4f} ms [{card}]")
         if C == 2 and w == W:  # the main path's shapes, 2 frames each
             step_ms += 2 * ms
             step_plain_ms += 2 * plain_ms
+            step_bound_ms += 2 * bound
     log(f"phase 3 kernels: per odometry step (2 frames x windows 11x8 + "
         f"15x14, C=2), device time: kernel {step_ms:.4f} ms, plain "
-        f"{step_plain_ms:.4f} ms [{card}]")
-    return {"max_abs_err": worst, "ms": step_ms, "plain_ms": step_plain_ms}
+        f"{step_plain_ms:.4f} ms, bound {step_bound_ms:.5f} ms [{card}]")
+    return {"max_abs_err": worst, "ms": step_ms, "plain_ms": step_plain_ms,
+            "bound_ms": step_bound_ms}
+
+
+def lk_features(rng, H, W, N, corners):
+    """Feature positions and start guesses for one level: detected
+    corners, uniform random positions, and the border cases — centres
+    within the clamp slack of each edge, on it and past it."""
+    slack = (PATCH - 1) // 2 + 1
+    uv = rng.uniform([0, 0], [W - 1, H - 1], (N, 2))
+    uv[: N // 2] = corners[: N // 2]
+    edge_x = [-slack - 2.5, -slack + 0.5, -0.25, 0.0, 0.6, W - 1.5, W - 1.0,
+              W - 0.3, W - 1 + slack - 0.2, W + slack + 3.0]
+    edge_y = [-slack - 2.5, -slack + 0.5, -0.25, 0.0, 0.6, H - 1.5, H - 1.0,
+              H - 0.3, H - 1 + slack - 0.2, H + slack + 3.0]
+    edges = ([(x, H / 2 + 0.37) for x in edge_x]
+             + [(W / 2 + 0.71, y) for y in edge_y]
+             + list(zip(edge_x, edge_y)) + list(zip(edge_x, edge_y[::-1])))
+    uv[N - len(edges):] = edges
+    guess = uv + rng.normal(0.0, 1.0, (N, 2))
+    return uv.astype(np.float32), guess.astype(np.float32)
+
+
+def lk_bound_ms(H, W, N) -> tuple[float, float]:
+    """The two least times the card could take for one LK level: the
+    bytes it must move (both images, uv_prev and uv_guess read once,
+    uv_out and ok written once) over the device-memory rate, and its
+    fp32 operations over the fp32 peak.  The bound is the larger."""
+    nbytes = 2 * H * W * 4 + N * (2 * 8 + 8 + 1)
+    taps = PATCH * PATCH
+    # blend: 9 ops per sample; gradients 4 and their products 6 per tap;
+    # per iteration and tap: blend 9, residual 1, two products 4.
+    flops = N * ((PATCH + 2) ** 2 * 9 + taps * 10 + LK_ITERS * taps * 14)
+    return nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FP32_S * 1e3
+
+
+def phase_lk(card: str, img0: np.ndarray, img1: np.ndarray) -> dict:
+    """The fused LK level against its plain version at the four level
+    shapes of the rendered frame pair."""
+    import torch
+    import torch.nn.functional as F
+    from mono_lidar_depth_tpu_torch.eval.kitti_eval import _dev_img
+    from mono_lidar_depth_tpu_torch.tracker import harris, klt
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    N = 2048
+    pyr0 = klt.build_pyramid(_dev_img(torch.from_numpy(img0).to(dev)),
+                             LEVELS)
+    pyr1 = klt.build_pyramid(_dev_img(torch.from_numpy(img1).to(dev)),
+                             LEVELS)
+    tot = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "library_ms": 0.0, "by_bytes": 0.0, "by_ops": 0.0}
+    for lvl in range(LEVELS):
+        prev, nxt = pyr0[lvl], pyr1[lvl]
+        H, W = prev.shape
+        corners, _ = harris.detect_features(prev, N, cell_size=4, border=2)
+        uv_np, guess_np = lk_features(rng, H, W, N, corners.cpu().numpy())
+        uv = torch.from_numpy(uv_np).to(dev)
+        guess = torch.from_numpy(guess_np).to(dev)
+
+        def kernel(iters=LK_ITERS):
+            return klt._lk_level_cuda(prev, nxt, uv, guess, PATCH, iters,
+                                      MIN_DET)
+
+        def plain():
+            return klt._lk_level_reference(prev, nxt, uv, guess, PATCH,
+                                           LK_ITERS, MIN_DET)
+
+        got_uv, got_ok = kernel()
+        torch.cuda.synchronize()
+        want_uv, want_ok = plain()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got_uv).all()), "lk_level: non-finite uv")
+        both = got_ok & want_ok
+        ok_share = float((got_ok == want_ok).float().mean())
+        err = (got_uv - want_uv).abs().amax(dim=1)[both]
+        worst = float(err.max())
+        within = float((err <= LK_TOL_PX).float().mean())
+        moved = float((want_uv - guess).norm(dim=1)[both].median())
+        log(f"phase 3 kernels: lk_level {H}x{W} N={N} patch {PATCH} iters "
+            f"{LK_ITERS}: ok lanes kernel {int(got_ok.sum())} plain "
+            f"{int(want_ok.sum())}, ok equal on {ok_share:.5f}; on lanes ok "
+            f"in both max |uv - plain| {worst:.3e} px, share within "
+            f"{LK_TOL_PX} px {within:.5f}, median move from the guess "
+            f"{moved:.3f} px")
+        check(ok_share >= LK_OK_SHARE,
+              f"lk_level {H}x{W}: ok agrees on {ok_share:.5f} < "
+              f"{LK_OK_SHARE}")
+        check(worst <= LK_TOL_PX,
+              f"lk_level {H}x{W}: max |uv - plain| {worst:.3e} px > "
+              f"{LK_TOL_PX}")
+
+        # Library yardstick: one grid_sample of the N x 81 patch taps
+        # (the sampling of ONE iteration), never called by the port.
+        r = (PATCH - 1) // 2
+        off = torch.arange(-r, r + 1, device=dev, dtype=torch.float32)
+        px = guess[:, None, None, 0] + off[None, None, :]
+        py = guess[:, None, None, 1] + off[None, :, None]
+        grid = torch.stack([(2 * px / (W - 1) - 1).expand(N, PATCH, PATCH),
+                            (2 * py / (H - 1) - 1).expand(N, PATCH, PATCH)],
+                           dim=-1).reshape(1, N, PATCH * PATCH, 2)
+
+        def library():
+            return F.grid_sample(nxt[None, None], grid, mode="bilinear",
+                                 padding_mode="border", align_corners=True)
+
+        ms = device_ms(kernel, "lk_level_kernel")
+        ms0 = device_ms(lambda: kernel(0), "lk_level_kernel")
+        plain_ms = device_ms(plain, reps=5)
+        lib_ms = device_ms(library)
+        wrap_ms, wrap_plain_ms = time_ms(kernel), time_ms(plain, reps=5)
+        by_bytes, by_ops = lk_bound_ms(H, W, N)
+        bound = max(by_bytes, by_ops)
+        by = "bytes" if by_bytes >= by_ops else "operations"
+        l2_mb = N * ((PATCH + 3) ** 2 + LK_ITERS * 4 * PATCH ** 2) * 4 / 1e6
+        log(f"phase 3 kernels: lk_level {H}x{W}: device time kernel "
+            f"{ms:.4f} ms (template stage alone {ms0:.4f} ms, one iteration "
+            f"{(ms - ms0) / LK_ITERS:.5f} ms), plain {plain_ms:.4f} ms, "
+            f"bound {bound:.5f} ms by {by}, {l2_mb:.1f} MB of L1/L2 tap "
+            f"reads; grid_sample of one iteration's taps {lib_ms:.4f} ms; "
+            f"wrapper time (CUDA events, back-to-back calls) kernel "
+            f"{wrap_ms:.4f} ms, plain {wrap_plain_ms:.4f} ms [{card}]")
+        # One track_frame runs every level twice (forward and backward).
+        tot["max_abs_err"] = max(tot["max_abs_err"], worst)
+        tot["ms"] += 2 * ms
+        tot["plain_ms"] += 2 * plain_ms
+        tot["bound_ms"] += 2 * bound
+        tot["library_ms"] += 2 * LK_ITERS * lib_ms
+        tot["by_bytes"] += 2 * by_bytes
+        tot["by_ops"] += 2 * by_ops
+    tot["bound_by"] = ("bytes" if tot.pop("by_bytes") >= tot.pop("by_ops")
+                       else "operations")
+    log(f"phase 3 kernels: per track_frame (2 passes x {LEVELS} levels), "
+        f"device time: lk_level {tot['ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms, "
+        f"grid_sample for the iterations' taps alone (2 x {LEVELS} x "
+        f"{LK_ITERS} calls) {tot['library_ms']:.4f} ms [{card}]")
+    return tot
 
 
 # --------------------------------------------------------------- phase 4
@@ -462,6 +640,222 @@ def phase_agree(card: str) -> None:
     check(path_err < 0.05, f"path length {100 * path_err:.2f}% off truth")
 
 
+# --------------------------------------------------------------- phase 6
+
+def _numpy_draws(rng, cfg, n_valid: int):
+    """RANSAC draws of one frame made with numpy, so that the card and
+    the CPU fit the same hypotheses."""
+    return (rng.integers(0, max(n_valid, 1), cfg.ransac_subsample_points),
+            rng.integers(0, cfg.ransac_subsample_points,
+                         (cfg.ransac_num_hypotheses, 3)))
+
+
+def phase_images(card: str, seq, render_s: float) -> dict:
+    import warnings
+
+    import torch
+    import mono_lidar_depth_tpu_torch as T
+    from mono_lidar_depth_tpu_torch.convert import (state_from_numpy,
+                                                    state_to_numpy)
+    from mono_lidar_depth_tpu_torch.core import windows
+    from mono_lidar_depth_tpu_torch.core.ransac import RansacDraws
+    from mono_lidar_depth_tpu_torch.eval.kitti_eval import _dev_img
+    from mono_lidar_depth_tpu_torch.io.kitti import pad_cloud
+    from mono_lidar_depth_tpu_torch.tracker import frontend, klt
+    from mono_lidar_depth_tpu_torch.vo.metrics import rpe_stats
+
+    dev = torch.device("cuda")
+    cfg = T.DepthEstimatorConfig()
+    ocfg = T.OdometryConfig()
+    N = cfg.max_features
+    cam = seq.camera
+    l2c = seq.lidar_to_cam(dev)
+    steps = len(seq) - 1
+    log(f"phase 6 images: {len(seq)} frames {cam.width}x{cam.height} "
+        f"rendered in {render_s:.2f} s, scans of "
+        f"{[len(x) for x in seq.raw_scans][:3]}.. points padded to "
+        f"{cfg.max_points}, {N} tracker lanes, cell 16, {LEVELS} levels, "
+        f"patch {PATCH}, {LK_ITERS} iterations")
+
+    # ---- the main path: frame_inputs -> odometry_step, counts per frame
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    state = T.OdometryState.create(cfg, ocfg, N, 12, dev)
+    prime: list = []
+    frames = T.frame_inputs(seq, cfg, prime=prime, pyramid_levels=LEVELS,
+                            device=dev, rng=gen)
+    klt.launches = 0
+    windows.launches = 0
+    counts, events, inputs, outs = [], [], [], []
+    t0 = time.perf_counter()
+    for k in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        frame, f = next(frames)
+        after_track = (klt.launches, windows.launches)
+        if k == 0:
+            state = state._replace(tracklets=T.prime_state(
+                cfg, cam, l2c, state.tracklets, prime[0][0], prime[0][1],
+                gen))
+        ev[1].record()
+        state, R_cw, t_cw, diag = T.odometry_step(cfg, ocfg, cam, l2c, state,
+                                                  frame)
+        ev[2].record()
+        counts.append(after_track + (klt.launches, windows.launches))
+        events.append(ev)
+        inputs.append(frame)
+        outs.append((R_cw, t_cw, diag))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lk_launches, win_launches = klt.launches, windows.launches
+    check(next(frames, None) is None, "frame_inputs yielded too many frames")
+
+    # counts: cumulative (lk, windows) after track_frame and after the step
+    c = np.asarray(counts)
+    before = np.concatenate([[[0, 0]], c[:-1, 2:]])
+    in_track, in_step = c[:, :2] - before, c[:, 2:] - c[:, :2]
+    check(bool((in_track == [2 * LEVELS, 2]).all()
+               and (in_step == [0, 4]).all()),
+          f"launches (lk_level, slice_windows) per frame: track_frame "
+          f"{in_track.tolist()}, want [{2 * LEVELS}, 2]; odometry_step "
+          f"{in_step.tolist()}, want [0, 4]")
+    leaves = list(tensors_of((state, outs, inputs)))
+    check(all(x.is_cuda for x in leaves), "an image-path tensor left the GPU")
+
+    emit = [float(f.ids_valid.float().mean()) for f in inputs]
+    check(min(emit[1:]) > EMIT_FLOOR,
+          f"emitted share of lanes {emit} <= floor {EMIT_FLOOR}")
+    kept = []
+    for a, b in zip(inputs[:-1], inputs[1:]):
+        same = a.ids_valid & b.ids_valid & (a.ids == b.ids)
+        check(bool((a.uv_new[same] == b.uv_prev[same]).all()),
+              "an emitted id's uv_prev is not its previous uv_new")
+        kept.append(int(same.sum()))
+    check(min(kept) > 0, "no track id persisted from one frame to the next")
+    for k, (R_cw, t_cw, diag) in enumerate(outs):
+        check(bool(torch.isfinite(R_cw).all() & torch.isfinite(t_cw).all()
+                   & torch.isfinite(diag).all()),
+              f"image frame {k}: non-finite pose or diagnostics")
+        det = float(torch.linalg.det(R_cw.double()))
+        check(abs(det - 1.0) < 1e-3, f"image frame {k}: det(R_cw) = {det}")
+    R = torch.stack([o[0] for o in outs]).cpu().numpy().astype(np.float64)
+    t = torch.stack([o[1] for o in outs]).cpu().numpy().astype(np.float64)
+    poses = np.tile(np.eye(4), (steps, 1, 1))
+    poses[:, :3, :3] = R.transpose(0, 2, 1)
+    poses[:, :3, 3] = -np.einsum("fij,fj->fi", R.transpose(0, 2, 1), t)
+    gt = seq.gt_poses[1:]
+    # The first processed frame has no previous-frame depths, so its
+    # motion is unobservable; measure the path after that transient.
+    s = 3
+    est_len = float(np.linalg.norm(poses[-1, :3, 3] - poses[s, :3, 3]))
+    gt_len = float(np.linalg.norm(gt[-1, :3, 3] - gt[s, :3, 3]))
+    path_err = abs(est_len - gt_len) / gt_len
+    rpe = rpe_stats(poses[s:], gt[s:])
+    ms_in = [e[0].elapsed_time(e[1]) for e in events]
+    ms_step = [e[1].elapsed_time(e[2]) for e in events]
+    log(f"phase 6 images: {steps} frames ok: per frame {2 * LEVELS} lk_level "
+        f"+ 2 + 4 slice_windows launches (totals {lk_launches}, "
+        f"{win_launches}), all tensors on {leaves[0].device}; emitted share "
+        f"of lanes {[round(x, 4) for x in emit]} > floor {EMIT_FLOOR} from "
+        f"the second frame on; ids kept frame to frame {kept}; diag "
+        f"[tracks, inliers, err px] of the last frame "
+        f"{[round(float(x), 3) for x in outs[-1][2]]}")
+    log(f"phase 6 images: path length after frame {s + 1}: "
+        f"{est_len:.4f} m vs truth {gt_len:.4f} m ({100 * path_err:.2f}% "
+        f"off); RPE trans {rpe['trans_rmse']:.4f} m rot "
+        f"{rpe['rot_rmse_deg']:.4f} deg per frame")
+    check(path_err < 0.05, f"image path length {100 * path_err:.2f}% off")
+    log(f"phase 6 images: per frame (CUDA events) upload + track_frame "
+        f"median {float(np.median(ms_in[1:])):.3f} ms, all "
+        f"{[round(x, 3) for x in ms_in]} (the first holds init_tracker and "
+        f"prime_state); odometry step median "
+        f"{float(np.median(ms_step)):.3f} ms, all "
+        f"{[round(x, 3) for x in ms_step]}; {steps} frames wall "
+        f"{wall:.3f} s [{card}]")
+
+    # ---- track_frame alone, and no host sync inside it
+    imgs = [_dev_img(torch.from_numpy(seq.image(i)).to(dev))
+            for i in range(len(seq))]
+    tstate = frontend.init_tracker(imgs[0], N, levels=LEVELS)
+    tstates = [tstate]
+    for img in imgs[1:3]:
+        tstate, _ = frontend.track_frame(tstate, img)
+        tstates.append(tstate)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            frontend.track_frame(tstates[2], imgs[3])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    check(not syncs, f"track_frame synchronized with the host: {syncs[:3]}")
+    track_ms = time_ms(lambda: frontend.track_frame(tstates[2], imgs[3]),
+                       reps=10)
+    log(f"phase 6 images: track_frame alone, no host sync inside (sync "
+        f"debug mode), wrapper time over 10 back-to-back calls "
+        f"{track_ms:.3f} ms [{card}]")
+
+    # ---- the card against the CPU's plain versions, frame by frame: the
+    # CPU tracker starts every frame from the card's tracker state, and
+    # both odometry chains take the same numpy RANSAC draws.
+    rng = np.random.default_rng(SEED + 11)
+    cpu = torch.device("cpu")
+    l2c_cpu = seq.lidar_to_cam(cpu)
+    scans = list(seq.scans(cfg.max_points))
+    clouds = [pad_cloud(x, n, cfg.max_points) for x, n in scans]
+    draws = [_numpy_draws(rng, cfg, n) for _, n in scans]
+
+    def prime_on(d, l2c_d):
+        st = T.OdometryState.create(cfg, ocfg, N, 12, d)
+        return st._replace(tracklets=T.prime_state(
+            cfg, cam, l2c_d, st.tracklets,
+            torch.from_numpy(clouds[0][0]).to(d),
+            torch.from_numpy(clouds[0][1]).to(d),
+            RansacDraws(*(torch.from_numpy(a).to(d) for a in draws[0]))))
+
+    def frame_on(d, out, k):
+        return T.FrameInput(
+            cloud=torch.from_numpy(clouds[k][0]).to(d),
+            cloud_valid=torch.from_numpy(clouds[k][1]).to(d),
+            ids=out.ids, ids_valid=out.valid, uv_new=out.uv_new,
+            uv_prev=out.uv_prev,
+            stamp=torch.tensor(float(seq.times[k]), device=d),
+            rng=RansacDraws(*(torch.from_numpy(a).to(d) for a in draws[k])))
+
+    g_state, c_state = prime_on(dev, l2c), prime_on(cpu, l2c_cpu)
+    tstate = tstates[0]
+    ok_agree, uv_err, dR, dt = [], [], 0.0, 0.0
+    t0 = time.perf_counter()
+    for k in range(1, len(seq)):
+        c_tstate = state_from_numpy(state_to_numpy(tstate), cpu)
+        tstate, g_out = frontend.track_frame(tstate, imgs[k])
+        _, c_out = frontend.track_frame(c_tstate, imgs[k].cpu())
+        g_valid = g_out.valid.cpu()
+        ok_agree.append(float((g_valid == c_out.valid).float().mean()))
+        both = g_valid & c_out.valid
+        uv_err.append(float((g_out.uv_new.cpu() - c_out.uv_new)
+                            .abs().amax(dim=1)[both].max()))
+        g_state, gR, gt_, _ = T.odometry_step(cfg, ocfg, cam, l2c, g_state,
+                                              frame_on(dev, g_out, k))
+        c_state, cR, ct, _ = T.odometry_step(cfg, ocfg, cam, l2c_cpu,
+                                             c_state, frame_on(cpu, c_out, k))
+        dR = max(dR, float((gR.cpu() - cR).abs().max()))
+        dt = max(dt, float((gt_.cpu() - ct).abs().max()))
+    log(f"phase 6 images: card vs CPU plain versions over {steps} frames "
+        f"({time.perf_counter() - t0:.1f} s): emitted lanes agree "
+        f"{[round(x, 5) for x in ok_agree]}, max |uv| difference on lanes "
+        f"emitted by both {[float(f'{x:.2e}') for x in uv_err]} px, poses "
+        f"max |dR| {dR:.2e}, max |dt| {dt:.2e} m [{card}]")
+    check(min(ok_agree) >= 0.99,
+          f"card/CPU emitted-lane agreement {min(ok_agree):.5f} < 0.99")
+    check(max(uv_err) <= 1e-2,
+          f"card/CPU tracked positions differ by {max(uv_err):.2e} px")
+    check(dR <= 1e-3 and dt <= 5e-3,
+          f"card/CPU image-path poses differ: |dR| {dR:.2e}, |dt| {dt:.2e}")
+    return {"lk_level": lk_launches, "slice_windows": win_launches}
+
+
 def main() -> int:
     import torch
 
@@ -480,24 +874,47 @@ def main() -> int:
     log(card)
 
     t0 = time.perf_counter()
-    kernels.library()
-    info = kernels.build_info
+    kernels.build()
+    info = dict(kernels.build_info)
+    for lib in ("windows", "lk_level"):
+        kernels.library(lib)
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if "registers" in ln or "spill" in ln]
     log(f"phase 2 build: {info['path']} in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {info['seconds']:.2f} s); ptxas: {' | '.join(ptxas)}")
+        f"(nvcc, one process per source, {info['seconds']:.2f} s); ptxas: "
+        f"{' | '.join(ptxas)}")
+
+    from mono_lidar_depth_tpu_torch.io.synthetic_dataset import (
+        SyntheticSpec, render_sequence)
+
+    t0 = time.perf_counter()
+    seq = render_sequence(SyntheticSpec(frames=IMAGE_FRAMES), seed=SEED)
+    render_s = time.perf_counter() - t0
 
     kern = phase_kernels(card)
+    lk = phase_lk(card, seq.image(0), seq.image(1))
     launches = phase_main(card)
     phase_agree(card)
+    img_launches = phase_images(card, seq, render_s)
 
-    # ms / plain_ms: device time of the 4 window extractions of one
-    # odometry step.
-    log(json.dumps({"kernels": [{
-        "name": "slice_windows", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"]}]}))
+    # Per kernel: `launches` of its main path's run (slice_windows: the
+    # feature-fed path of phase 4 plus the image-fed path of phase 6);
+    # ms, plain_ms, bound_ms: device time of the kernel's launches in one
+    # frame (slice_windows: the 4 crops of one odometry step; lk_level:
+    # the 2 passes x 4 levels of one track_frame).  lk_level's library_ms
+    # is grid_sample doing the iterations' patch sampling alone.
+    log(json.dumps({"kernels": [
+        {"name": "slice_windows", "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES,
+         "launches": launches + img_launches["slice_windows"],
+         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
+         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "lk_level", "route": "cuda", "source": LK_SOURCE,
+         "replaces": REPLACES, "launches": img_launches["lk_level"],
+         "max_abs_err": lk["max_abs_err"], "ms": lk["ms"],
+         "plain_ms": lk["plain_ms"], "bound_ms": lk["bound_ms"],
+         "bound_by": lk["bound_by"], "library_ms": lk["library_ms"]}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -3,9 +3,14 @@
 The JAX package beside it stays the reference; each module here mirrors
 the module of the same path there, and the parity tests in
 tests/test_torch_*.py hold one against the other.  Plain tensor code is
-PyTorch; the one TPU kernel on the main path (window extraction) is a
-hand-written CUDA kernel (csrc/windows.cu).  Importing the package turns
-TF32 off (precision.py).
+PyTorch; the one TPU kernel of the JAX package (window extraction) is
+hand-written CUDA in two forms: a crop for the depth path
+(csrc/windows.cu) and a fused Lucas-Kanade level for the tracker
+(csrc/lk_level.cu).  Two entry paths: `odometry_step` on given feature
+tracks, and `eval_vo_sequence` / `frame_inputs` from grey images and
+lidar scans.  Tensors live on `default_device()` (CUDA device 0) unless
+the caller passes a device.  Importing the package turns TF32 off
+(precision.py).
 """
 
 from . import precision
@@ -17,6 +22,14 @@ from .core.depth_estimator import (DepthEstimate, estimate_depths,
 from .core.geometry import SE3, PinholeCamera
 from .core.ransac import GroundPlane, fit_ground_plane_ransac
 from .core.result_types import DepthResultType
+from .device import default_device
+from .eval.kitti_eval import _frame_inputs as frame_inputs
+from .eval.kitti_eval import eval_vo_sequence
+from .io.synthetic_dataset import (SyntheticSequence, SyntheticSpec,
+                                   render_sequence)
+from .tracker import (TrackerOutput, TrackerState, build_pyramid,
+                      detect_features, init_tracker, shi_tomasi_response,
+                      track_features, track_frame)
 from .tracks.pipeline import (FrameInput, TrackletDepthState, prime_state,
                               process_frame)
 from .vo.pipeline import (OdometryConfig, OdometryState, odometry_step,
@@ -31,4 +44,8 @@ __all__ = [
     "GroundPlane", "fit_ground_plane_ransac", "DepthResultType",
     "FrameInput", "TrackletDepthState", "prime_state", "process_frame",
     "OdometryConfig", "OdometryState", "odometry_step", "run_odometry",
+    "default_device", "frame_inputs", "eval_vo_sequence",
+    "SyntheticSequence", "SyntheticSpec", "render_sequence",
+    "TrackerOutput", "TrackerState", "build_pyramid", "detect_features",
+    "init_tracker", "shi_tomasi_response", "track_features", "track_frame",
 ]

@@ -1,8 +1,8 @@
 """Carry state between the JAX package and the port.
 
 There are no learned weights; what crosses over is state: FrameCloud,
-GroundPlane, TrackTable, TrackletDepthState, OdometryState (and SE3 /
-BAProblem / FrameInput).  The port's NamedTuples keep the JAX field
+GroundPlane, TrackTable, TrackletDepthState, OdometryState, TrackerState
+(and SE3 / BAProblem / FrameInput / TrackerOutput).  The port's NamedTuples keep the JAX field
 names and layouts, so a tree converts field by field:
 
   * `state_from_numpy(tree, device)`: a tree of numpy arrays — a
@@ -23,6 +23,8 @@ from .core.depth_estimator import DepthEstimate
 from .core.geometry import SE3
 from .core.projection import FrameCloud
 from .core.ransac import GroundPlane
+from .device import Device, default_device
+from .tracker.frontend import TrackerOutput, TrackerState
 from .tracks.pipeline import FrameInput, TrackletDepthState
 from .tracks.table import TrackTable
 from .vo.ba import BAProblem
@@ -30,14 +32,15 @@ from .vo.pipeline import OdometryState
 
 _PORT_TYPES = {cls.__name__: cls for cls in (
     SE3, FrameCloud, GroundPlane, TrackTable, TrackletDepthState,
-    FrameInput, OdometryState, BAProblem, DepthEstimate)}
+    FrameInput, OdometryState, BAProblem, DepthEstimate, TrackerState,
+    TrackerOutput)}
 
 
 def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def state_from_numpy(tree, device: torch.device | str = "cpu"):
+def state_from_numpy(tree, device: Device = default_device()):
     """Numpy tree -> the port's tree of tensors on `device`."""
     if tree is None or isinstance(tree, (bool, int, float, str)):
         return tree

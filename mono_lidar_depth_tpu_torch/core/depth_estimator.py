@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import DepthEstimatorConfig
+from ..device import Device, default_device
 from ..obs.stats import count_codes
 from .geometry import (SE3, PinholeCamera, dot3, plane_from_points,
                        point_plane_distance, ray_plane_intersection)
@@ -51,7 +52,7 @@ class DepthEstimate(NamedTuple):
     debug: Optional[DepthDebug] = None
 
 
-def no_ground_plane(max_points: int, device: torch.device | str = "cpu"
+def no_ground_plane(max_points: int, device: Device = default_device()
                     ) -> GroundPlane:
     """Placeholder plane (ok == False disables the road pass)."""
     return GroundPlane(

@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import Device, default_device
+
 
 def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Sum over the last (size-3) axis of a * b, left to right."""
@@ -50,7 +52,7 @@ class PinholeCamera(NamedTuple):
     cx: float
     cy: float
 
-    def intrinsics(self, device: torch.device | str = "cpu") -> torch.Tensor:
+    def intrinsics(self, device: Device = default_device()) -> torch.Tensor:
         f = self.focal_length
         return torch.tensor([[f, 0.0, self.cx], [0.0, f, self.cy],
                              [0.0, 0.0, 1.0]], dtype=torch.float32,
@@ -83,7 +85,7 @@ class SE3(NamedTuple):
     translation: torch.Tensor  # [..., 3]
 
     @classmethod
-    def identity(cls, device: torch.device | str = "cpu") -> "SE3":
+    def identity(cls, device: Device = default_device()) -> "SE3":
         return cls(torch.eye(3, device=device),
                    torch.zeros(3, device=device))
 

@@ -71,13 +71,13 @@ def slice_windows_cuda(stack: torch.Tensor, sy: torch.Tensor,
         raise ValueError(f"window {Ky}x{Kx} does not fit grid {H}x{W}")
     out = torch.empty((N, C, Ky, Kx), dtype=torch.float32,
                       device=stack.device)
-    lib = kernels.library()
+    lib = kernels.library("windows")
     with torch.cuda.device(stack.device):
         stream = torch.cuda.current_stream(stack.device).cuda_stream
         code = lib.mld_slice_windows(
             stack.data_ptr(), sy.data_ptr(), sx.data_ptr(), out.data_ptr(),
             C, H, W, N, Ky, Kx, stream)
-        kernels.check(code, "slice_windows kernel launch")
+        kernels.check(lib, code, "slice_windows kernel launch")
         launches += 1
     return out
 

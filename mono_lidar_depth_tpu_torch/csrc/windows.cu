@@ -29,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kFeatsPerBlock = 8;
@@ -74,8 +76,4 @@ extern "C" int mld_slice_windows(const float* stack, const int32_t* sy,
         stack, sy, sx, out, C, H, W, N, Ky, Kx);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" const char* mld_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,11 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under `csrc/` are compiled with `nvcc` for `sm_90a` into a
-shared library with a plain C interface and bound with `ctypes` (no
-PyTorch headers, so a build takes seconds).  The library is built at
-first use into `_build/<source hash>/` inside the package, so a fresh
-checkout builds it on its own and an edited source builds anew.  Delete
-`_build/` to force a rebuild.  Nothing here runs at import time.
+Each source under `csrc/` is compiled with `nvcc` for `sm_90a` into a
+shared library of its own with a plain C interface and bound with
+`ctypes` (no PyTorch headers, so a build takes seconds).  The first use
+of any kernel builds every source, one `nvcc` process each, all started
+together, into `_build/<hash of the sources and flags>/` inside the
+package; so a fresh checkout builds on its own and an edited source
+builds anew.  Delete `_build/` to force a rebuild.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -25,8 +27,19 @@ BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lib: ctypes.CDLL | None = None
-build_info: dict = {}  # path, seconds and compiler log of the last load
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# library (source stem) -> entry point -> argument types; every entry
+# point returns cudaGetLastError() as an int.
+_ENTRY_POINTS = {
+    "windows": {"mld_slice_windows": [_vp, _vp, _vp, _vp,
+                                      _ci, _ci, _ci, _ci, _ci, _ci, _vp]},
+    "lk_level": {"mld_lk_level": [_vp, _vp, _vp, _vp, _vp, _vp,
+                                  _ci, _ci, _ci, _ci, _ci,
+                                  _cf, _cf, _cf, _cf, _vp]},
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
+build_info: dict = {}  # directory, seconds and compiler logs of the build
 
 
 def _sources() -> list[Path]:
@@ -44,56 +57,73 @@ def _nvcc() -> str:
     return str(path)
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives."""
+def build_dir() -> Path:
+    """Where the libraries for the current sources live."""
     h = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(_CSRC.glob("*.cu*")):  # sources and shared headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_ROOT / h.hexdigest()[:16] / "libmld_kernels.so"
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return build_dir() / f"libmld_{name}.so"
 
 
 def build() -> Path:
-    """Compile the library unless this source hash is already built."""
-    out = library_path()
-    if out.exists():
-        build_info.update(path=str(out), seconds=0.0, log="(cached)")
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    """Compile every source that this source hash has not built yet, all
+    at once; returns the build directory."""
+    out_dir = build_dir()
+    todo = [s for s in _sources() if not library_path(s.stem).exists()]
+    if not todo:
+        build_info.update(path=str(out_dir), seconds=0.0, log="(cached)")
+        return out_dir
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent process sees no partial file
-    build_info.update(path=str(out), seconds=seconds,
-                      log=proc.stdout + proc.stderr)
-    return out
+    procs = []
+    for src in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        procs.append((src, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, tmp, proc in procs:  # wait for all, so none outlives a failure
+        log, _ = proc.communicate()
+        logs.append(f"[{src.name}]\n{log}")
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed on {src.name} ({proc.returncode}):\n"
+                          f"{log}")
+        else:
+            # atomic: a concurrent process sees no partial file
+            os.replace(tmp, library_path(src.stem))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    build_info.update(path=str(out_dir), seconds=time.perf_counter() - t0,
+                      log="".join(logs))
+    return out_dir
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.mld_slice_windows.argtypes = [vp, vp, vp, vp,
-                                          ci, ci, ci, ci, ci, ci, vp]
-        lib.mld_slice_windows.restype = ci
-        lib.mld_error_string.argtypes = [ci]
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu (everything is built on the
+    first call)."""
+    if name not in _libs:
+        build()
+        lib = ctypes.CDLL(str(library_path(name)))
+        for fn, argtypes in _ENTRY_POINTS[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _ci
+        lib.mld_error_string.argtypes = [_ci]
         lib.mld_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]
 
 
-def check(code: int, what: str) -> None:
-    """Raise if a kernel entry point returned a CUDA error."""
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a kernel entry point of `lib` returned a CUDA error."""
     if code != 0:
-        msg = library().mld_error_string(code).decode()
+        msg = lib.mld_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

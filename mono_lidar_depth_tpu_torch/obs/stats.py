@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..core.result_types import NUM_RESULT_TYPES, DepthResultType as R
+from ..device import Device, default_device
 
 
 def count_codes(codes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -37,7 +38,7 @@ class DepthCalcStats(NamedTuple):
     points: torch.Tensor  # [] int32
 
     @classmethod
-    def zeros(cls, device: torch.device | str = "cpu") -> "DepthCalcStats":
+    def zeros(cls, device: Device = default_device()) -> "DepthCalcStats":
         z = torch.zeros(NUM_RESULT_TYPES, dtype=torch.int32, device=device)
         s = torch.zeros((), dtype=torch.int32, device=device)
         return cls(accumulated=z, last_frame=z, frames=s, points=s)

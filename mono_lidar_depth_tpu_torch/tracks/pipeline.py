@@ -24,6 +24,7 @@ from ..core.geometry import SE3, PinholeCamera
 from ..core.projection import POINT_NOT_DEFINED, FrameCloud
 from ..core.ransac import GroundPlane, RansacDraws, fit_ground_plane_ransac
 from ..core.result_types import NUM_RESULT_TYPES
+from ..device import Device, default_device
 from .table import TrackTable, match_tracks, update_tracks
 
 # RANSAC randomness of one frame: a generator on the cloud's device, or
@@ -63,7 +64,7 @@ class TrackletDepthState(NamedTuple):
 
     @classmethod
     def create(cls, cfg: DepthEstimatorConfig, max_tracks: int,
-               max_length: int, device: torch.device | str = "cpu"
+               max_length: int, device: Device = default_device()
                ) -> "TrackletDepthState":
         return cls(
             table=TrackTable.create(max_tracks, max_length, device),

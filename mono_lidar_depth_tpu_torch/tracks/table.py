@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import Device, default_device
+
 FREE = -1
 
 
@@ -28,7 +30,7 @@ class TrackTable(NamedTuple):
 
     @classmethod
     def create(cls, max_tracks: int, max_length: int,
-               device: torch.device | str = "cpu") -> "TrackTable":
+               device: Device = default_device()) -> "TrackTable":
         T, L = max_tracks, max_length
         i32 = dict(dtype=torch.int32, device=device)
         return cls(

@@ -20,6 +20,7 @@ import torch
 
 from ..config import DepthEstimatorConfig
 from ..core.geometry import SE3, PinholeCamera, norm3
+from ..device import Device, default_device
 from ..tracks.pipeline import FrameInput, TrackletDepthState, process_frame
 from .ba import BAProblem, run_ba
 from .pose import PoseEstimate, estimate_pose_gn
@@ -56,7 +57,7 @@ class OdometryState(NamedTuple):
     @classmethod
     def create(cls, cfg: DepthEstimatorConfig, ocfg: OdometryConfig,
                max_tracks: int, max_length: int,
-               device: torch.device | str = "cpu") -> "OdometryState":
+               device: Device = default_device()) -> "OdometryState":
         W = ocfg.ba_window
         win_valid = torch.zeros(W, dtype=torch.bool, device=device)
         win_valid[0] = True
@@ -215,7 +216,7 @@ def run_odometry(cfg: DepthEstimatorConfig, ocfg: OdometryConfig,
                  camera: PinholeCamera, lidar_to_cam: SE3,
                  frames: list[FrameInput], max_tracks: int = 2048,
                  max_length: int = 12,
-                 device: torch.device | str = "cpu",
+                 device: Device = default_device(),
                  ) -> tuple[np.ndarray, list]:
     """Host loop over frames: ([F, 4, 4] world<-cam poses, diagnostics)."""
     state = OdometryState.create(cfg, ocfg, max_tracks, max_length, device)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time of the full-size odometry step goes, on one CUDA GPU.
+"""Where the time of the full-size odometry step and of the tracker's
+`track_frame` goes, on one CUDA GPU.
 
     python3 profile_step.py
 
-Runs the port's main path on chip_smoke.py's scene (the reference
+First the odometry step.  Runs the port's main path on chip_smoke.py's scene (the reference
 defaults at the KITTI size, bench.py's synthetic clouds and tracks) for
 11 steps after `prime_state`:
 
@@ -18,6 +19,13 @@ defaults at the KITTI size, bench.py's synthetic clouds and tracks) for
 The idle share is 1 - busy / step median, against the unprofiled median.
 Stages are labelled by wrapping the functions the step calls (in
 tracks/pipeline.py and vo/pipeline.py) for the profiled steps only.
+
+Then the image path: 12 frames of the synthetic sequence at the KITTI
+size (chip_smoke.py's phase 6 settings) are rendered and moved to the
+card, `init_tracker` runs on the first, and `track_frame` on the others
+with the same plan (4 warm, 4 timed alone, 3 profiled), its stages being
+`build_pyramid`, `track_features` (8 `lk_level` launches and the ZNCC
+patches), `detect_features`, and the lane bookkeeping that remains.
 """
 
 from __future__ import annotations
@@ -40,16 +48,23 @@ STAGES = [("tracks", "_ground_plane", "ransac"),
           ("vo", "run_ba", "window_ba")]
 
 
+# The stages of one track_frame (all called from tracker/frontend.py).
+TRACK_STAGES = [("frontend", "build_pyramid", "build_pyramid"),
+                ("frontend", "track_features", "track_features"),
+                ("frontend", "detect_features", "detect_features")]
+
+
 @contextlib.contextmanager
-def labelled_stages():
+def labelled_stages(stages=STAGES):
     """Wrap each stage function in a profiler range named after it."""
     import torch
+    from mono_lidar_depth_tpu_torch.tracker import frontend
     from mono_lidar_depth_tpu_torch.tracks import pipeline as tracks
     from mono_lidar_depth_tpu_torch.vo import pipeline as vo
 
-    modules = {"tracks": tracks, "vo": vo}
+    modules = {"tracks": tracks, "vo": vo, "frontend": frontend}
     saved = []
-    for mod_name, fn_name, label in STAGES:
+    for mod_name, fn_name, label in stages:
         mod = modules[mod_name]
         fn = getattr(mod, fn_name)
         saved.append((mod, fn_name, fn))
@@ -66,45 +81,34 @@ def labelled_stages():
             setattr(mod, fn_name, fn)
 
 
-def main() -> int:
+def profile_calls(what: str, call, stages, card: str) -> None:
+    """WARM calls of `call()`, TIMED calls alone under CUDA events, then
+    PROFILED calls under torch.profiler with `stages` labelled; prints
+    the median, the device's busy and idle share and the stage table."""
     import torch
-    import mono_lidar_depth_tpu_torch as T
     from torch.profiler import ProfilerActivity, profile
 
-    if not torch.cuda.is_available():
-        print("profile_step: no CUDA device", file=sys.stderr)
-        return 1
-    card = cs.card_line()
-    sc = cs.bench_scene(frames=WARM + TIMED + PROFILED)
-    state = cs.prime(sc)
-
-    def step(frame):
-        nonlocal state
-        state, *_ = T.odometry_step(sc.cfg, sc.ocfg, sc.cam,
-                                    sc.lidar_to_cam, state, frame)
-
-    frames = iter(sc.inputs)
     for _ in range(WARM):
-        step(next(frames))
+        call()
     events = []
     for _ in range(TIMED):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        step(next(frames))
+        call()
         stop.record()
         events.append((start, stop))
     torch.cuda.synchronize()
-    step_ms = [a.elapsed_time(b) for a, b in events]
-    median = float(np.median(step_ms))
+    call_ms = [a.elapsed_time(b) for a, b in events]
+    median = float(np.median(call_ms))
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with labelled_stages(), profile(activities=acts) as prof:
+    with labelled_stages(stages), profile(activities=acts) as prof:
         for _ in range(PROFILED):
-            step(next(frames))
+            call()
         torch.cuda.synchronize()
     rows = prof.key_averages()
-    labels = {label for *_, label in STAGES}
+    labels = {label for *_, label in stages}
     # Device activities: CUDA rows other than the ranges' own annotations.
     dev_rows = [e for e in rows
                 if e.device_type == torch.autograd.DeviceType.CUDA
@@ -112,15 +116,15 @@ def main() -> int:
     busy = sum(e.self_device_time_total for e in dev_rows) / 1e3 / PROFILED
     n_dev = sum(e.count for e in dev_rows) / PROFILED
 
-    print(f"odometry step, {TIMED} steps alone (CUDA events): "
-          f"median {median:.3f} ms, all {[round(x, 3) for x in step_ms]} "
+    print(f"{what}, {TIMED} calls alone (CUDA events): "
+          f"median {median:.3f} ms, all {[round(x, 3) for x in call_ms]} "
           f"[{card}]")
-    print(f"profiled steps: device busy {busy:.3f} ms/step, "
-          f"{n_dev:.0f} device activities/step; idle share against the "
+    print(f"profiled calls: device busy {busy:.3f} ms/call, "
+          f"{n_dev:.0f} device activities/call; idle share against the "
           f"unprofiled median {1 - busy / median:.3f} [{card}]")
-    print("stage | calls/step | host ms/step | device ms/step")
+    print("stage | calls/call | host ms/call | device ms/call")
     staged = 0.0
-    for _, _, label in STAGES:
+    for _, _, label in stages:
         row = next((e for e in rows if e.key == label
                     and e.device_type == torch.autograd.DeviceType.CPU), None)
         if row is None:
@@ -131,11 +135,49 @@ def main() -> int:
         print(f"{label} | {row.count / PROFILED:g} | "
               f"{row.cpu_time_total / 1e3 / PROFILED:.3f} | {dev_ms:.3f}")
     print(f"device time inside the stages: {staged:.3f} of {busy:.3f} "
-          f"ms/step")
-    print("top device activities by time (ms/step, count/step):")
+          f"ms/call")
+    print("top device activities by time (ms/call, count/call):")
     for e in sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3 / PROFILED:8.3f} "
               f"{e.count / PROFILED:6.0f}  {e.key[:90]}")
+
+
+def main() -> int:
+    import torch
+    import mono_lidar_depth_tpu_torch as T
+    from mono_lidar_depth_tpu_torch.eval.kitti_eval import _dev_img
+
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device", file=sys.stderr)
+        return 1
+    card = cs.card_line()
+    calls = WARM + TIMED + PROFILED
+    sc = cs.bench_scene(frames=calls)
+    state = cs.prime(sc)
+    frames = iter(sc.inputs)
+
+    def step():
+        nonlocal state
+        state, *_ = T.odometry_step(sc.cfg, sc.ocfg, sc.cam,
+                                    sc.lidar_to_cam, state, next(frames))
+
+    profile_calls("odometry step", step, STAGES, card)
+
+    seq = T.render_sequence(T.SyntheticSpec(frames=calls + 1), seed=cs.SEED)
+    dev = torch.device("cuda")
+    imgs = iter([_dev_img(torch.from_numpy(seq.image(i)).to(dev))
+                 for i in range(len(seq))])
+    tstate = T.init_tracker(next(imgs), sc.cfg.max_features,
+                            levels=cs.LEVELS)
+
+    def track():
+        nonlocal tstate
+        tstate, _ = T.track_frame(tstate, next(imgs))
+
+    print()
+    profile_calls(f"track_frame ({sc.cfg.max_features} lanes, {cs.LEVELS} "
+                  f"levels, {seq.camera.width}x{seq.camera.height})", track,
+                  TRACK_STAGES, card)
     print(card)
     return 0
 

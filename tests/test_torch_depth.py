@@ -342,7 +342,7 @@ def test_debug_record_and_frame_entry_points():
                            torch.from_numpy(uv), torch.from_numpy(fvalid))
     assert_trees_equal(state_to_numpy(tz), to_numpy(jz))
 
-    js, ts = JStats.zeros(), TStats.zeros()
+    js, ts = JStats.zeros(), TStats.zeros("cpu")
     for est_j, est_t in ((jest, test), (jz, tz)):
         js, ts = js.update(est_j.counters), ts.update(est_t.counters)
     assert_trees_equal(state_to_numpy(ts), to_numpy(js))

@@ -1,0 +1,247 @@
+"""The image-fed path of the port against the JAX package's on the CPU:
+the synthetic sequence generator, the trajectory metrics, and the slice
+as a whole — grey images + lidar scans -> tracker -> FrameInput ->
+odometry_step -> poses."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import mono_lidar_depth_tpu as J
+import mono_lidar_depth_tpu_torch as T
+from mono_lidar_depth_tpu.eval import kitti_eval as jeval
+from mono_lidar_depth_tpu.io import synthetic_dataset as jsyn
+from mono_lidar_depth_tpu.io.kitti import KittiSequence
+from mono_lidar_depth_tpu.vo import metrics as jmetrics
+from mono_lidar_depth_tpu.vo import pipeline as jvo
+from mono_lidar_depth_tpu_torch.core.ransac import RansacDraws
+from mono_lidar_depth_tpu_torch.eval import kitti_eval as teval
+from mono_lidar_depth_tpu_torch.io import synthetic_dataset as tsyn
+from mono_lidar_depth_tpu_torch.vo import metrics as tmetrics
+
+from torch_parity import jax_ransac_draws
+
+SPEC = dict(frames=6, image_width=384, image_height=128, focal=240.0,
+            lidar_rows=16, lidar_cols=300)
+SMALL = dict(max_points=8192, max_features=256, image_width=384,
+             image_height=128, ransac_num_hypotheses=128,
+             ransac_subsample_points=1024)
+
+
+@pytest.fixture(scope="module")
+def written(tmp_path_factory):
+    """The JAX package's writer and the port's, each in its own dir."""
+    jroot = tmp_path_factory.mktemp("jax_seq")
+    troot = tmp_path_factory.mktemp("port_seq")
+    jsyn.generate_kitti_sequence(str(jroot), "99", jsyn.SyntheticSpec(**SPEC),
+                                 seed=3)
+    tsyn.generate_kitti_sequence(str(troot), "99", tsyn.SyntheticSpec(**SPEC),
+                                 seed=3)
+    return jroot, troot
+
+
+def test_spec_and_scene_constants_match():
+    import dataclasses
+
+    fields = [(f.name, f.default) for f in dataclasses.fields(
+        jsyn.SyntheticSpec)]
+    assert fields == [(f.name, f.default) for f in dataclasses.fields(
+        tsyn.SyntheticSpec)]
+    for name in ("GROUND_Y", "WALL_X", "FRONT_Z_OFFSET", "WALL_Y_TOP",
+                 "LABEL_ROAD", "LABEL_WALL", "LABEL_SKY"):
+        assert getattr(jsyn, name) == getattr(tsyn, name)
+    assert np.array_equal(jsyn.R_CL, tsyn.R_CL)
+    assert np.array_equal(jsyn.T_CL, tsyn.T_CL)
+    u = np.linspace(-40, 90, 1001)
+    assert np.array_equal(jsyn._texture(u, u[::-1]), tsyn._texture(u, u[::-1]))
+
+
+def test_writer_writes_the_same_files(written):
+    jroot, troot = written
+    jfiles = sorted(p.relative_to(jroot) for p in jroot.rglob("*")
+                    if p.is_file())
+    tfiles = sorted(p.relative_to(troot) for p in troot.rglob("*")
+                    if p.is_file())
+    assert jfiles == tfiles and len(jfiles) == 3 * SPEC["frames"] + 3
+    for rel in jfiles:
+        assert (jroot / rel).read_bytes() == (troot / rel).read_bytes(), rel
+
+
+@pytest.mark.parametrize("spec_kw", [{}, {"loop": True, "frames": 24},
+                                     {"road_texture": 0.2}])
+def test_render_sequence_matches_written(tmp_path, spec_kw):
+    """In memory: the image bytes, scans, poses, stamps and calibration
+    that the JAX package's writer puts on disk."""
+    kw = dict(SPEC, **spec_kw)
+    if kw["frames"] > 6:  # keep the long loop small
+        kw.update(image_width=96, image_height=32, lidar_cols=60)
+    jsyn.generate_kitti_sequence(str(tmp_path), "07",
+                                 jsyn.SyntheticSpec(**kw), seed=5)
+    disk = KittiSequence(str(tmp_path), "07", kw["image_width"],
+                         kw["image_height"])
+    mem = tsyn.render_sequence(tsyn.SyntheticSpec(**kw), seed=5)
+    assert len(mem) == len(disk) == kw["frames"]
+    for i in range(len(mem)):
+        assert mem.image(i).dtype == np.uint8
+        assert np.array_equal(mem.image(i), disk.image(i))
+        raw = np.fromfile(disk.scan_paths[i], np.float32).reshape(-1, 4)
+        assert raw.tobytes() == mem.raw_scans[i].tobytes()
+    assert mem.image(len(mem)) is None
+    # what the writer prints with 9 and 6 digits
+    np.testing.assert_allclose(mem.gt_poses, disk.gt_poses, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(mem.times, disk.times, rtol=0, atol=1e-6)
+    jcam = disk.calib.camera
+    assert tuple(mem.camera) == (jcam.width, jcam.height, jcam.focal_length,
+                                 jcam.cx, jcam.cy)
+    l2c = mem.lidar_to_cam("cpu")
+    np.testing.assert_array_equal(l2c.rotation.numpy(),
+                                  np.asarray(disk.calib.lidar_to_cam.rotation))
+    np.testing.assert_array_equal(
+        l2c.translation.numpy(),
+        np.asarray(disk.calib.lidar_to_cam.translation))
+    for (a, na), (b, nb) in zip(mem.scans(4096), disk.scans(4096)):
+        assert na == nb and np.array_equal(a, np.asarray(b))
+
+
+@pytest.mark.parametrize("seed,n", [(0, 12), (1, 40)])
+def test_metrics_copy_matches(seed, n):
+    rng = np.random.default_rng(seed)
+
+    def poses(noise):
+        out = np.tile(np.eye(4), (n, 1, 1))
+        for k in range(n):
+            w = rng.normal(0, 0.2, 3) * noise + [0, 0.01 * k, 0]
+            out[k, :3, :3] = np.asarray(J.vo.lie.so3_exp(jnp.asarray(
+                w, jnp.float32)), np.float64)
+            out[k, :3, 3] = [0.1 * k, 0, k] + rng.normal(0, 0.05, 3) * noise
+        return out
+
+    gt, est = poses(0.0), poses(1.0)
+    for with_scale in (False, True):
+        a = jmetrics.umeyama_align(est[:, :3, 3], gt[:, :3, 3], with_scale)
+        b = tmetrics.umeyama_align(est[:, :3, 3], gt[:, :3, 3], with_scale)
+        for x, y in zip(a, b):
+            assert np.array_equal(np.asarray(x), np.asarray(y))
+        assert jmetrics.ate_rmse(est[:, :3, 3], gt[:, :3, 3],
+                                 with_scale=with_scale) == tmetrics.ate_rmse(
+            est[:, :3, 3], gt[:, :3, 3], with_scale=with_scale)
+    assert jmetrics.ate_rmse(est[:, :3, 3], gt[:, :3, 3], align=False) == \
+        tmetrics.ate_rmse(est[:, :3, 3], gt[:, :3, 3], align=False)
+    for delta in (1, 3):
+        assert jmetrics.rpe_stats(est, gt, delta) == tmetrics.rpe_stats(
+            est, gt, delta)
+
+
+def test_load_payload_and_semantics(written):
+    mem = tsyn.render_sequence(tsyn.SyntheticSpec(**SPEC), seed=3)
+    disk = KittiSequence(str(written[0]), "99", 384, 128)
+    jcfg, tcfg = J.DepthEstimatorConfig(**SMALL), T.DepthEstimatorConfig(
+        **SMALL)
+    xyzi, count = next(iter(mem.scans(tcfg.max_points)))
+    jx, jc = next(iter(disk.scans(jcfg.max_points)))
+    want = jeval._load_payload(disk, jcfg, 0, jx, jc, False)
+    got = teval._load_payload(mem, tcfg, 0, xyzi, count, False)
+    for a, b in zip(got[:3], want[:3]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert got[3] is None and want[3] is None
+    with pytest.raises(NotImplementedError, match="semantic"):
+        teval._load_payload(mem, tcfg, 0, xyzi, count, True)
+    with pytest.raises(NotImplementedError, match="semantic"):
+        next(teval._frame_inputs(mem, tcfg, use_semantics=True,
+                                 device="cpu"))
+    with pytest.raises(FileNotFoundError):
+        teval._load_payload(mem, tcfg, len(mem), xyzi, count, False)
+
+
+def test_image_fed_odometry_matches_jax(written, monkeypatch):
+    """Five processed frames from images and scans, through the JAX
+    `_frame_inputs` + `odometry_step` and through the port's, with the
+    JAX RANSAC draws injected and both trackers fed the same f32 image
+    (XLA scales by 1/255, PyTorch divides: test_torch_tracker.py)."""
+    monkeypatch.setattr(teval, "_dev_img", lambda img: torch.from_numpy(
+        np.array(jeval._dev_img(jnp.asarray(img.numpy())))))
+    disk = KittiSequence(str(written[0]), "99", 384, 128)
+    mem = tsyn.render_sequence(tsyn.SyntheticSpec(**SPEC), seed=3)
+    jcfg, tcfg = J.DepthEstimatorConfig(**SMALL), T.DepthEstimatorConfig(
+        **SMALL)
+    ocfg_kw = dict(ba_window=5, ba_iters=5)
+    jocfg, tocfg = jvo.OdometryConfig(**ocfg_kw), T.OdometryConfig(**ocfg_kw)
+    M = SMALL["max_features"]
+    jcam, jl2c = disk.calib.camera, disk.calib.lidar_to_cam
+    tcam, tl2c = mem.camera, mem.lidar_to_cam("cpu")
+
+    jprime, tprime = [], []
+    jframes = list(jeval._frame_inputs(disk, jcfg, prime=jprime,
+                                       pyramid_levels=3))
+    tframes = list(teval._frame_inputs(mem, tcfg, prime=tprime,
+                                       pyramid_levels=3, device="cpu"))
+    assert [f for _, f in jframes] == [f for _, f in tframes] == [1, 2, 3,
+                                                                  4, 5]
+    assert isinstance(tframes[0][0].rng, torch.Generator)
+
+    def draws(key, cvalid):
+        return RansacDraws(*jax_ransac_draws(
+            key, np.asarray(cvalid), tcfg.ransac_subsample_points,
+            tcfg.ransac_num_hypotheses))
+
+    key0 = jax.random.PRNGKey(1234)
+    jstate = jvo.OdometryState.create(jcfg, jocfg, M, 8)
+    jstate = jstate._replace(tracklets=J.tracks.pipeline.prime_state(
+        jcfg, jcam, jl2c, jstate.tracklets, jprime[0][0], jprime[0][1], key0))
+    tstate = T.OdometryState.create(tcfg, tocfg, M, 8, "cpu")
+    tstate = tstate._replace(tracklets=T.prime_state(
+        tcfg, tcam, tl2c, tstate.tracklets, tprime[0][0], tprime[0][1],
+        draws(key0, jprime[0][1])))
+
+    emitted = 0
+    for (jf, _), (tf, _) in zip(jframes, tframes):
+        # the tracker's outputs: ids and the emit mask exactly
+        assert np.array_equal(tf.ids.numpy(), np.asarray(jf.ids))
+        assert np.array_equal(tf.ids_valid.numpy(), np.asarray(jf.ids_valid))
+        np.testing.assert_allclose(tf.uv_new.numpy(), np.asarray(jf.uv_new),
+                                   atol=1e-3, rtol=0)
+        assert np.array_equal(tf.cloud.numpy(), np.asarray(jf.cloud))
+        assert float(tf.stamp) == float(jf.stamp)
+        emitted += int(tf.ids_valid.sum())
+        jstate, jR, jt, jdiag = jvo.odometry_step(jcfg, jocfg, jcam, jl2c,
+                                                  jstate, jf)
+        tstate, tR, tt, tdiag = T.odometry_step(
+            tcfg, tocfg, tcam, tl2c, tstate,
+            tf._replace(rng=draws(jf.rng, jf.cloud_valid)))
+        # the cold-start bar of test_torch_vo.py::test_run_odometry_matches
+        np.testing.assert_allclose(tR.numpy(), np.asarray(jR), atol=5e-3)
+        np.testing.assert_allclose(tt.numpy(), np.asarray(jt), atol=5e-3)
+        # tracked positions differ by ~1e-5 px, which can move a feature
+        # across a pixel border of the depth association and so change
+        # the count of tracks with a depth (observed: 26 against 27 in
+        # one of the five frames, equal in the others)
+        assert np.abs(tdiag.numpy()[:2] - np.asarray(jdiag)[:2]).max() <= 2
+    assert emitted > 100
+    assert np.array_equal(tstate.tracklets.table.track_id.numpy(),
+                          np.asarray(jstate.tracklets.table.track_id))
+    # and the motion is the generator's: 0.8 m per frame
+    c = -(tR.T @ tt).numpy()
+    gt = mem.gt_poses[5, :3, 3]
+    assert np.linalg.norm(c - gt) < 0.15, (c, gt)
+
+
+def test_eval_vo_sequence_on_the_cpu():
+    """The per-frame loop: poses, frame ids, diagnostics and metrics."""
+    mem = tsyn.render_sequence(tsyn.SyntheticSpec(**SPEC), seed=3)
+    out = T.eval_vo_sequence(mem, T.DepthEstimatorConfig(**SMALL),
+                             T.OdometryConfig(ba_window=5, ba_iters=5),
+                             max_tracks=256, max_length=8, verbose=False,
+                             device="cpu")
+    assert out["frames"] == 5 and out["frame_ids"] == [1, 2, 3, 4, 5]
+    assert out["poses"].shape == (5, 4, 4) and out["diag"].shape == (5, 3)
+    assert np.isfinite(out["poses"]).all()
+    assert out["ate_rmse"] < 0.2 and out["rpe_trans_rmse"] < 0.2
+    short = T.eval_vo_sequence(mem, T.DepthEstimatorConfig(**SMALL),
+                               max_frames=3, max_tracks=256, max_length=8,
+                               verbose=False, device="cpu")
+    assert short["frame_ids"] == [1, 2]
+    with pytest.raises(ValueError, match="fewer than two"):
+        T.eval_vo_sequence(mem, T.DepthEstimatorConfig(**SMALL), max_frames=1,
+                           max_tracks=256, max_length=8, device="cpu")

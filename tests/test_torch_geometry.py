@@ -33,7 +33,7 @@ def test_camera_and_se3():
     np.testing.assert_allclose(tc.viewing_rays(_t(uv)).numpy(),
                                np.asarray(jc.viewing_rays(jnp.asarray(uv))),
                                atol=1e-6)
-    np.testing.assert_array_equal(tc.intrinsics().numpy(),
+    np.testing.assert_array_equal(tc.intrinsics("cpu").numpy(),
                                   np.asarray(jc.intrinsics()))
     A = np.linalg.qr(rng.normal(size=(3, 3)))[0].astype(np.float32)
     B = np.linalg.qr(rng.normal(size=(3, 3)))[0].astype(np.float32)

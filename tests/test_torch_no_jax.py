@@ -1,8 +1,12 @@
 """The port stands alone: it imports neither jax nor the JAX package, and
-the modules it copies from the JAX package match their originals."""
+the modules it copies from the JAX package match their originals.  Its
+scripts import without PIL or yaml, which the machine with the card lacks,
+and no public function defaults to the CPU."""
 
 import ast
 import dataclasses
+import importlib
+import inspect
 import os
 import pkgutil
 import subprocess
@@ -11,6 +15,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import mono_lidar_depth_tpu_torch as port
 from mono_lidar_depth_tpu import config as jcfg
@@ -23,6 +28,8 @@ from mono_lidar_depth_tpu_torch.io import kitti as tkitti
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "mono_lidar_depth_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "mono_lidar_depth_tpu")
+LAZY_ONLY = ("PIL", "yaml")  # may be imported inside a function only
+SCRIPTS = ["chip_smoke.py", "profile_step.py"]
 
 
 def _port_modules():
@@ -34,10 +41,10 @@ def test_port_imports_no_jax():
     code = (
         "import sys, importlib\n"
         f"for m in {_port_modules()!r} + ['mono_lidar_depth_tpu_torch', "
-        "'chip_smoke']:\n"
+        "'chip_smoke', 'profile_step']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{FORBIDDEN!r})\n"
+        f"{FORBIDDEN + LAZY_ONLY!r})\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -47,21 +54,88 @@ def test_port_imports_no_jax():
     assert out.stdout.strip() == "ok"
 
 
+def _imported(node):
+    if isinstance(node, ast.Import):
+        return [a.name.split(".")[0] for a in node.names]
+    if isinstance(node, ast.ImportFrom) and node.level == 0:
+        return [(node.module or "").split(".")[0]]
+    return []
+
+
 @pytest.mark.parametrize("path", sorted(
-    [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")] + SCRIPTS))
 def test_no_jax_import_statement(path):
-    """Not even a lazy import inside a function."""
+    """Not even a lazy import inside a function; PIL and yaml only there."""
     tree = ast.parse((REPO / path).read_text())
     for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            names = [node.module or ""]
-        else:
+        for name in _imported(node):
+            assert name not in FORBIDDEN, (path, name)
+    for node in tree.body:  # module level
+        for name in _imported(node):
+            assert name not in LAZY_ONLY, (path, name)
+
+
+def test_new_modules_are_covered():
+    """The tracker, the frame-input loop and their data modules are
+    among the files the import checks walk."""
+    have = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert {"tracker/harris.py", "tracker/klt.py", "tracker/frontend.py",
+            "tracker/__init__.py", "eval/kitti_eval.py",
+            "io/synthetic_dataset.py", "vo/metrics.py", "device.py"} <= have
+
+
+def _public_callables():
+    """(qualified name, callable) of every public function, class and
+    public method or classmethod defined in the port."""
+    for mod_name in ["mono_lidar_depth_tpu_torch"] + _port_modules():
+        mod = importlib.import_module(mod_name)
+        for name, obj in vars(mod).items():
+            if name.startswith("_") or getattr(obj, "__module__",
+                                               None) != mod_name:
+                continue
+            if inspect.isfunction(obj):
+                yield f"{mod_name}.{name}", obj
+            elif inspect.isclass(obj):
+                yield f"{mod_name}.{name}", obj
+                for attr, member in vars(obj).items():
+                    if attr.startswith("_"):
+                        continue
+                    fn = getattr(member, "__func__", member)
+                    if inspect.isfunction(fn):
+                        yield f"{mod_name}.{name}.{attr}", fn
+
+
+def test_no_public_default_is_the_cpu():
+    """Every `device=` default is the card (`default_device()`), and no
+    parameter of any kind defaults to "cpu"."""
+    from mono_lidar_depth_tpu_torch.device import default_device
+
+    seen = []
+    for qual, fn in _public_callables():
+        try:
+            params = inspect.signature(fn).parameters
+        except (TypeError, ValueError):
             continue
-        for name in names:
-            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+        for pname, prm in params.items():
+            d = prm.default
+            is_cpu = (d == "cpu" or (isinstance(d, torch.device)
+                                     and d.type == "cpu"))
+            assert not is_cpu, f"{qual}({pname}=...) defaults to the CPU"
+            if pname == "device" and d is not inspect.Parameter.empty:
+                assert d == default_device(), (qual, d)
+                seen.append(qual)
+    assert default_device() == torch.device("cuda", 0)
+    # the entry points named in the port's rule
+    for want in ("vo.pipeline.OdometryState.create",
+                 "vo.pipeline.run_odometry",
+                 "tracks.pipeline.TrackletDepthState.create",
+                 "tracks.table.TrackTable.create",
+                 "core.depth_estimator.no_ground_plane",
+                 "convert.state_from_numpy", "obs.stats.DepthCalcStats.zeros",
+                 "core.geometry.PinholeCamera.intrinsics",
+                 "core.geometry.SE3.identity",
+                 "eval.kitti_eval.eval_vo_sequence"):
+        assert f"mono_lidar_depth_tpu_torch.{want}" in seen, want
 
 
 def _fields(cls):

@@ -52,7 +52,7 @@ def test_table_updates_bitexact(T_slots, M, id_space):
     """The second case overflows the table (more new tracks than slots)."""
     rng = np.random.default_rng(T_slots)
     jtab = JT.TrackTable.create(T_slots, 6)
-    ttab = state_from_numpy(to_numpy(jtab))
+    ttab = state_from_numpy(to_numpy(jtab), "cpu")
     for step in range(8):
         ids, valid, uv_new, uv_prev, d_new, d_prev = _random_update(
             rng, M, id_space)
@@ -176,7 +176,7 @@ def test_semantic_frames_raise():
     frame = T.FrameInput(**{k: torch.tensor(v) for k, v in f.items()},
                          rng=torch.Generator().manual_seed(0),
                          semantic=torch.zeros((128, 384), dtype=torch.int32))
-    state = T.TrackletDepthState.create(cfg, cfg.max_features, 8)
+    state = T.TrackletDepthState.create(cfg, cfg.max_features, 8, "cpu")
     with pytest.raises(NotImplementedError, match="semantic"):
         T.process_frame(cfg, T.PinholeCamera(**CAMERA),
                         T.SE3(torch.from_numpy(R_LC),

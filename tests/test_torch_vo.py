@@ -274,7 +274,7 @@ def test_run_odometry_matches():
     tposes, tdiags = T.run_odometry(
         tcfg, T.OdometryConfig(**ocfg_kw), TCAM,
         T.SE3(torch.from_numpy(R_LC), torch.zeros(3)), tframes,
-        max_tracks=M, max_length=8)
+        max_tracks=M, max_length=8, device="cpu")
     assert tposes.shape == jposes.shape == (4, 4, 4)
     # From a cold start the first frame's motion is unobservable (no
     # previous-frame depths) and the BA window's gauge is weakly held,

@@ -61,6 +61,11 @@ def assert_trees_equal(got, want, path="", atol=0.0, rtol=0.0):
     if want is None:
         assert got is None, path
         return
+    if isinstance(want, (tuple, list)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_trees_equal(g, w, f"{path}[{i}]", atol, rtol)
+        return
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape, (path, got.shape, want.shape)
     if atol == 0.0 and rtol == 0.0 or want.dtype.kind in "biu":
