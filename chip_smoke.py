@@ -12,11 +12,14 @@ Phases, each printed on its own lines:
                version on the card at the main paths' shapes: the window
                crop bit-exact at edge starts; the fused Lucas-Kanade
                level within LK_TOL_PX at the four level shapes of a KITTI
-               pyramid, with features on and past the borders; the
+               pyramid, with features on and past the borders, and at
+               every other patch size the kernel is built for; the
                device time of both from torch.profiler, their wrapper
                time (CUDA events around back-to-back calls, host launch
-               cost included) and, for the LK level, one `grid_sample`
-               of the same patch taps as a library yardstick.
+               cost included) and one library call as a yardstick: for
+               the crop one advanced-indexing gather on index tensors
+               made beforehand, for the LK level one `grid_sample` of
+               the same patch taps.
   4. main    — `prime_state` then FRAMES odometry steps at the full
                KITTI size (131,072-point cloud, 2,048 features,
                384x1248 grid, 1,024 RANSAC hypotheses over 6,000
@@ -35,8 +38,10 @@ Phases, each printed on its own lines:
                `frame_inputs`, with both kernels' launch counts read
                after every frame; state on the card, no host sync inside
                `track_frame`, ids persistent, poses finite and on the
-               ground truth's path, and the card in agreement with the
-               CPU's plain versions frame by frame.
+               ground truth's path, the same frames through
+               `eval_vo_sequence` with the same poses and launch counts,
+               and the card in agreement with the CPU's plain versions
+               frame by frame.
 
 The kernels' JSON record and the card line (nvidia-smi's name and power
 limit) come just before the last line, which is {"ok": true, "device":
@@ -63,6 +68,10 @@ SOURCE = "mono_lidar_depth_tpu_torch/csrc/windows.cu"
 LK_SOURCE = "mono_lidar_depth_tpu_torch/csrc/lk_level.cu"
 # The tracker's settings on the image-fed path (the eval harness's).
 LEVELS, PATCH, LK_ITERS, MIN_DET = 4, 9, 8, 1e-4
+# The other patch sizes held against the plain version (no timing): with
+# PATCH they reach every instantiation of the kernel (1, 2, 3, 4, 6 and 8
+# taps per lane) up to its largest patch.
+OTHER_PATCHES = (5, 7, 11, 13, 15)
 # The fused LK level against its plain version: every elementwise step is
 # the plain version's to the bit, the 81-term sums run in another order,
 # and 8 dependent iterations carry that along.  Lanes `ok` in both must
@@ -130,14 +139,21 @@ def device_ms(fn, kernel: str | None = None, reps: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and (kernel is None or kernel in e.key)]
-    us = sum(e.self_device_time_total for e in rows)
+    # A trace this short now and then comes back with no device
+    # records at all; such a trace is taken again, at most twice.
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and (kernel is None or kernel in e.key)]
+        us = sum(e.self_device_time_total for e in rows)
+        if us > 0:
+            break
+        log(f"device_ms: profiler trace {attempt + 1} for "
+            f"{kernel or fn.__name__} held no device records")
     check(us > 0, f"the profiler saw no device time for {kernel or fn}")
     return us / 1e3 / reps
 
@@ -185,7 +201,7 @@ def phase_kernels(card: str) -> dict:
              # the tracker's ZNCC patches: finest level 370x1226, pad 10
              (1, 390, 1246, 10, 10)]
     worst = 0.0
-    step_ms = step_plain_ms = step_bound_ms = 0.0
+    step_ms = step_plain_ms = step_bound_ms = step_lib_ms = 0.0
     for C, h, w, Ky, Kx in cases:
         stack = torch.from_numpy(
             rng.normal(size=(C, h, w)).astype(np.float32)).to(dev)
@@ -207,8 +223,20 @@ def phase_kernels(card: str) -> dict:
         def plain():
             return windows.slice_windows_reference(stack, sy, sx, Ky, Kx)
 
-        ms, plain_ms = (device_ms(kernel, "slice_windows_kernel"),
-                        device_ms(plain))
+        # Library yardstick: the one advanced-indexing gather, on index
+        # tensors made outside the timed call; never called by the port.
+        rows = (sy.long().clamp(0, h - Ky)[:, None]
+                + torch.arange(Ky, device=dev))[:, :, None]
+        cols = (sx.long().clamp(0, w - Kx)[:, None]
+                + torch.arange(Kx, device=dev))[:, None, :]
+
+        def library():
+            return stack[:, rows, cols]  # [C, N, Ky, Kx]
+
+        check(torch.equal(library().permute(1, 0, 2, 3), got),
+              "the library gather differs from the window kernel")
+        ms, plain_ms, lib_ms = (device_ms(kernel, "slice_windows_kernel"),
+                                device_ms(plain), device_ms(library))
         wrap_ms, wrap_plain_ms = time_ms(kernel), time_ms(plain)
         out_mb = N * C * Ky * Kx * 4 / 1e6
         # Bound: a pure copy, so bytes: the stack and the starts read
@@ -218,25 +246,27 @@ def phase_kernels(card: str) -> dict:
         log(f"phase 3 kernels: slice_windows C={C} {h}x{w} N={N} "
             f"window {Ky}x{Kx}: bit-exact; device time kernel {ms:.4f} ms "
             f"({out_mb / ms:.1f} GB/s of output), plain {plain_ms:.4f} ms, "
-            f"bound {bound:.5f} ms by bytes; "
-            f"wrapper time (CUDA events, back-to-back calls) kernel "
+            f"bound {bound:.5f} ms by bytes, one indexing gather on ready "
+            f"indices {lib_ms:.4f} ms; wrapper time (CUDA events, back-to-back calls) kernel "
             f"{wrap_ms:.4f} ms, plain {wrap_plain_ms:.4f} ms [{card}]")
         if C == 2 and w == W:  # the main path's shapes, 2 frames each
             step_ms += 2 * ms
             step_plain_ms += 2 * plain_ms
             step_bound_ms += 2 * bound
+            step_lib_ms += 2 * lib_ms
     log(f"phase 3 kernels: per odometry step (2 frames x windows 11x8 + "
         f"15x14, C=2), device time: kernel {step_ms:.4f} ms, plain "
-        f"{step_plain_ms:.4f} ms, bound {step_bound_ms:.5f} ms [{card}]")
+        f"{step_plain_ms:.4f} ms, bound {step_bound_ms:.5f} ms, indexing "
+        f"gather on ready indices {step_lib_ms:.4f} ms [{card}]")
     return {"max_abs_err": worst, "ms": step_ms, "plain_ms": step_plain_ms,
-            "bound_ms": step_bound_ms}
+            "bound_ms": step_bound_ms, "library_ms": step_lib_ms}
 
 
-def lk_features(rng, H, W, N, corners):
+def lk_features(rng, H, W, N, corners, patch=PATCH):
     """Feature positions and start guesses for one level: detected
     corners, uniform random positions, and the border cases — centres
     within the clamp slack of each edge, on it and past it."""
-    slack = (PATCH - 1) // 2 + 1
+    slack = (patch - 1) // 2 + 1
     uv = rng.uniform([0, 0], [W - 1, H - 1], (N, 2))
     uv[: N // 2] = corners[: N // 2]
     edge_x = [-slack - 2.5, -slack + 0.5, -0.25, 0.0, 0.6, W - 1.5, W - 1.0,
@@ -262,6 +292,42 @@ def lk_bound_ms(H, W, N) -> tuple[float, float]:
     # per iteration and tap: blend 9, residual 1, two products 4.
     flops = N * ((PATCH + 2) ** 2 * 9 + taps * 10 + LK_ITERS * taps * 14)
     return nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FP32_S * 1e3
+
+
+def lk_compare(prev, nxt, uv, guess, patch: int) -> float:
+    """One LK level through the kernel and through its plain version on
+    the same inputs: checks the two bars and returns max |uv - plain| on
+    the lanes `ok` in both."""
+    import torch
+    from mono_lidar_depth_tpu_torch.tracker import klt
+
+    H, W = prev.shape
+    got_uv, got_ok = klt._lk_level_cuda(prev, nxt, uv, guess, patch,
+                                        LK_ITERS, MIN_DET)
+    torch.cuda.synchronize()
+    want_uv, want_ok = klt._lk_level_reference(prev, nxt, uv, guess, patch,
+                                               LK_ITERS, MIN_DET)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got_uv).all()), "lk_level: non-finite uv")
+    both = got_ok & want_ok
+    ok_share = float((got_ok == want_ok).float().mean())
+    err = (got_uv - want_uv).abs().amax(dim=1)[both]
+    worst = float(err.max())
+    within = float((err <= LK_TOL_PX).float().mean())
+    moved = float((want_uv - guess).norm(dim=1)[both].median())
+    log(f"phase 3 kernels: lk_level {H}x{W} N={uv.shape[0]} patch {patch} "
+        f"iters {LK_ITERS}: ok lanes kernel {int(got_ok.sum())} plain "
+        f"{int(want_ok.sum())}, ok equal on {ok_share:.5f}; on lanes ok "
+        f"in both max |uv - plain| {worst:.3e} px, share within "
+        f"{LK_TOL_PX} px {within:.5f}, median move from the guess "
+        f"{moved:.3f} px")
+    check(ok_share >= LK_OK_SHARE,
+          f"lk_level {H}x{W} patch {patch}: ok agrees on {ok_share:.5f} < "
+          f"{LK_OK_SHARE}")
+    check(worst <= LK_TOL_PX,
+          f"lk_level {H}x{W} patch {patch}: max |uv - plain| {worst:.3e} "
+          f"px > {LK_TOL_PX}")
+    return worst
 
 
 def phase_lk(card: str, img0: np.ndarray, img1: np.ndarray) -> dict:
@@ -297,29 +363,7 @@ def phase_lk(card: str, img0: np.ndarray, img1: np.ndarray) -> dict:
             return klt._lk_level_reference(prev, nxt, uv, guess, PATCH,
                                            LK_ITERS, MIN_DET)
 
-        got_uv, got_ok = kernel()
-        torch.cuda.synchronize()
-        want_uv, want_ok = plain()
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got_uv).all()), "lk_level: non-finite uv")
-        both = got_ok & want_ok
-        ok_share = float((got_ok == want_ok).float().mean())
-        err = (got_uv - want_uv).abs().amax(dim=1)[both]
-        worst = float(err.max())
-        within = float((err <= LK_TOL_PX).float().mean())
-        moved = float((want_uv - guess).norm(dim=1)[both].median())
-        log(f"phase 3 kernels: lk_level {H}x{W} N={N} patch {PATCH} iters "
-            f"{LK_ITERS}: ok lanes kernel {int(got_ok.sum())} plain "
-            f"{int(want_ok.sum())}, ok equal on {ok_share:.5f}; on lanes ok "
-            f"in both max |uv - plain| {worst:.3e} px, share within "
-            f"{LK_TOL_PX} px {within:.5f}, median move from the guess "
-            f"{moved:.3f} px")
-        check(ok_share >= LK_OK_SHARE,
-              f"lk_level {H}x{W}: ok agrees on {ok_share:.5f} < "
-              f"{LK_OK_SHARE}")
-        check(worst <= LK_TOL_PX,
-              f"lk_level {H}x{W}: max |uv - plain| {worst:.3e} px > "
-              f"{LK_TOL_PX}")
+        worst = lk_compare(prev, nxt, uv, guess, PATCH)
 
         # Library yardstick: one grid_sample of the N x 81 patch taps
         # (the sampling of ONE iteration), never called by the port.
@@ -359,6 +403,18 @@ def phase_lk(card: str, img0: np.ndarray, img1: np.ndarray) -> dict:
         tot["library_ms"] += 2 * LK_ITERS * lib_ms
         tot["by_bytes"] += 2 * by_bytes
         tot["by_ops"] += 2 * by_ops
+    # The kernel's other instantiations, at the finest and the coarsest
+    # level (correctness only).
+    for lvl in (0, LEVELS - 1):
+        prev, nxt = pyr0[lvl], pyr1[lvl]
+        H, W = prev.shape
+        corners, _ = harris.detect_features(prev, N, cell_size=4, border=2)
+        for patch in OTHER_PATCHES:
+            uv_np, guess_np = lk_features(rng, H, W, N,
+                                          corners.cpu().numpy(), patch)
+            tot["max_abs_err"] = max(tot["max_abs_err"], lk_compare(
+                prev, nxt, torch.from_numpy(uv_np).to(dev),
+                torch.from_numpy(guess_np).to(dev), patch))
     tot["bound_by"] = ("bytes" if tot.pop("by_bytes") >= tot.pop("by_ops")
                        else "operations")
     log(f"phase 3 kernels: per track_frame (2 passes x {LEVELS} levels), "
@@ -772,6 +828,37 @@ def phase_images(card: str, seq, render_s: float) -> dict:
         f"{[round(x, 3) for x in ms_step]}; {steps} frames wall "
         f"{wall:.3f} s [{card}]")
 
+    # ---- the same frames through the sequence entry point
+    klt.launches = 0
+    windows.launches = 0
+    t0 = time.perf_counter()
+    res = T.eval_vo_sequence(seq, cfg, ocfg, max_tracks=N, max_length=12,
+                             verbose=False, device=dev, seed=SEED)
+    eval_s = time.perf_counter() - t0
+    check((klt.launches, windows.launches) == (lk_launches, win_launches),
+          f"eval_vo_sequence launched ({klt.launches}, {windows.launches}) "
+          f"kernels, the frame loop ({lk_launches}, {win_launches})")
+    check(res["frames"] == steps and res["frame_ids"] == list(
+        range(1, len(seq))), f"eval_vo_sequence frames {res['frame_ids']}")
+    # Same seed and the same order of RANSAC draws as the loop above; the
+    # bars are phase 5's, for sums that the card may add in another order.
+    dR = float(np.abs(res["poses"][:, :3, :3] - poses[:, :3, :3]).max())
+    dt = float(np.abs(res["poses"][:, :3, 3] - poses[:, :3, 3]).max())
+    check(dR <= 1e-3 and dt <= 5e-3,
+          f"eval_vo_sequence poses differ from the frame loop's: |dR| "
+          f"{dR:.2e}, |dt| {dt:.2e}")
+    full = rpe_stats(poses, gt)
+    check(abs(res["rpe_trans_rmse"] - full["trans_rmse"]) <= 5e-3,
+          f"eval_vo_sequence RPE {res['rpe_trans_rmse']:.4f} m, the frame "
+          f"loop's {full['trans_rmse']:.4f} m")
+    log(f"phase 6 images: eval_vo_sequence over the same frames in "
+        f"{eval_s:.3f} s: {klt.launches} lk_level + {windows.launches} "
+        f"slice_windows launches as the frame loop; poses against the "
+        f"loop's max |dR| {dR:.2e}, max |dt| {dt:.2e} m; over all {steps} "
+        f"frames ATE {res['ate_rmse']:.4f} m, RPE trans "
+        f"{res['rpe_trans_rmse']:.4f} m (loop {full['trans_rmse']:.4f} m) "
+        f"rot {res['rpe_rot_rmse_deg']:.4f} deg [{card}]")
+
     # ---- track_frame alone, and no host sync inside it
     imgs = [_dev_img(torch.from_numpy(seq.image(i)).to(dev))
             for i in range(len(seq))]
@@ -901,15 +988,17 @@ def main() -> int:
     # feature-fed path of phase 4 plus the image-fed path of phase 6);
     # ms, plain_ms, bound_ms: device time of the kernel's launches in one
     # frame (slice_windows: the 4 crops of one odometry step; lk_level:
-    # the 2 passes x 4 levels of one track_frame).  lk_level's library_ms
-    # is grid_sample doing the iterations' patch sampling alone.
+    # the 2 passes x 4 levels of one track_frame).  library_ms: for
+    # slice_windows the indexing gather of the same 4 crops on ready
+    # indices, for lk_level grid_sample doing the iterations' patch
+    # sampling alone.
     log(json.dumps({"kernels": [
         {"name": "slice_windows", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES,
          "launches": launches + img_launches["slice_windows"],
          "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
          "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": kern["library_ms"]},
         {"name": "lk_level", "route": "cuda", "source": LK_SOURCE,
          "replaces": REPLACES, "launches": img_launches["lk_level"],
          "max_abs_err": lk["max_abs_err"], "ms": lk["ms"],

@@ -26,13 +26,13 @@
 // Design.  One warp per feature, kWarpsPerBlock = 4 features per
 // 128-thread block: at N = 2048 that is 512 small blocks, about 4 on each
 // of the 132 SMs, so every SM holds some 16 independent dependency chains
-// to hide each other's load latency (8 features per block would leave half
-// as many blocks as evenly spread).  The warp stages the (patch+3)^2
+// to hide each other's load latency (the block size was chosen by this
+// argument; 8 features per block was not timed).  The warp stages the (patch+3)^2
 // template window and its blend in shared memory (the gradient stencils
 // read neighbours), then keeps template, gx and gy of its taps in
 // registers, T = ceil(patch^2 / 32) taps per lane (3 at patch 9); the
-// kernel is instantiated for T = 1..8, which covers odd patches up to
-// kMaxPatch = 15.  Sums go through xor-shuffle butterflies, which leave
+// kernel is instantiated for T = 1, 2, 3, 4, 6 and 8, the counts that the
+// odd patches 1..kMaxPatch = 15 give (no odd square needs 5 or 7).  Sums go through xor-shuffle butterflies, which leave
 // the same bits in every lane, so the carried position stays uniform
 // across the warp with no broadcast.  In the iterations every lane loads
 // the 4 corners of its taps straight from the image (the duplicates hit
@@ -248,7 +248,7 @@ extern "C" int mld_lk_level(const float* prev_img, const float* next_img,
   if (N > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int taps = (patch * patch + 31) / 32;
-    static_assert(kMaxTaps == 8, "the switch below covers T = 1..8");
+    static_assert(kMaxTaps == 8, "the switch below ends at T = 8");
 #define MLD_LK_CASE(T)                                                     \
   case T:                                                                  \
     launch<T>(prev_img, next_img, uv_prev, uv_guess, uv_out, ok_out, H, W, \
@@ -259,9 +259,7 @@ extern "C" int mld_lk_level(const float* prev_img, const float* next_img,
       MLD_LK_CASE(2)
       MLD_LK_CASE(3)
       MLD_LK_CASE(4)
-      MLD_LK_CASE(5)
       MLD_LK_CASE(6)
-      MLD_LK_CASE(7)
       MLD_LK_CASE(8)
       default:
         return static_cast<int>(cudaErrorInvalidValue);
