@@ -13,21 +13,29 @@ Phases, each printed on its own lines:
                crop bit-exact at edge starts; the fused Lucas-Kanade
                level within LK_TOL_PX at the four level shapes of a KITTI
                pyramid, with features on and past the borders, and at
-               every other patch size the kernel is built for; the
-               device time of both from torch.profiler, their wrapper
-               time (CUDA events around back-to-back calls, host launch
-               cost included) and one library call as a yardstick: for
-               the crop one advanced-indexing gather on index tensors
-               made beforehand, for the LK level one `grid_sample` of
-               the same patch taps.
+               every other patch size the kernel is built for; the fused
+               neighbor gather bit-exact on every field on rasterized
+               synthetic scans, for one and two frames, one and two
+               scales, with and without the index plane, unequal
+               feature counts, a 1280-wide grid, an odd window pair,
+               dense made-up stacks, and features on, at and past every
+               border and at NaN and infinite positions; the device time of
+               each from torch.profiler, their wrapper time (CUDA events
+               around back-to-back calls, host launch cost included) and
+               one library call as a yardstick: for the crop one
+               advanced-indexing gather on index tensors made
+               beforehand, for the LK level one `grid_sample` of the
+               same patch taps, for the neighbor gather the four
+               indexing gathers of its crops alone.
   4. main    — `prime_state` then FRAMES odometry steps at the full
                KITTI size (131,072-point cloud, 2,048 features,
                384x1248 grid, 1,024 RANSAC hypotheses over 6,000
                points, 2,048-slot track table of length 12), with the
                launch counts of the kernels reset just before and read
-               just after; outputs finite, every step's codes in range
-               and counted, success share above its floor, everything
-               on the card.
+               just after (one neighbor gather per step, no window
+               crop); outputs finite, every step's codes in range and
+               counted, success share above its floor, everything on
+               the card; no host sync inside the neighbor gather.
   5. agree   — a small metric world run on the card and on the CPU
                (the plain versions) from the same RANSAC draws: poses
                and codes agree, poses track the ground truth.
@@ -35,7 +43,7 @@ Phases, each printed on its own lines:
                frames of the synthetic sequence (1226x370 images, 32x900
                lidar scans) rendered in memory, then `init_tracker` and
                per frame `track_frame` + `odometry_step` through
-               `frame_inputs`, with both kernels' launch counts read
+               `frame_inputs`, with all three kernels' launch counts read
                after every frame; state on the card, no host sync inside
                `track_frame`, ids persistent, poses finite and on the
                ground truth's path, the same frames through
@@ -66,6 +74,7 @@ IMAGE_FRAMES = 9  # rendered frames of the image-fed run (8 steps)
 REPLACES = "mono_lidar_depth_tpu/core/pallas_windows.py:95"
 SOURCE = "mono_lidar_depth_tpu_torch/csrc/windows.cu"
 LK_SOURCE = "mono_lidar_depth_tpu_torch/csrc/lk_level.cu"
+GATHER_SOURCE = "mono_lidar_depth_tpu_torch/csrc/gather_neighbors.cu"
 # The tracker's settings on the image-fed path (the eval harness's).
 LEVELS, PATCH, LK_ITERS, MIN_DET = 4, 9, 8, 1e-4
 # The other patch sizes held against the plain version (no timing): with
@@ -130,10 +139,39 @@ def time_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(stop) / reps
 
 
+# Set once torch.profiler has returned three traces in a row without any
+# device record: it was seen to stay that way for the rest of a process.
+_profiler_lost = False
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per fn() call without the profiler:
+    `reps` calls captured into one CUDA graph, its replay timed with CUDA
+    events.  No host launch cost, but the gaps between the graph's nodes
+    count, so it reads a little above the kernels' own time."""
+    import torch
+
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def device_ms(fn, kernel: str | None = None, reps: int = 20) -> float:
     """Mean device milliseconds per fn() call from torch.profiler: the
     kernels whose name contains `kernel`, or every device activity fn
-    starts (kernels, copies, fills) when `kernel` is None."""
+    starts (kernels, copies, fills) when `kernel` is None.  If the
+    profiler stops returning device records, from `graph_ms` instead."""
+    global _profiler_lost
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -141,7 +179,7 @@ def device_ms(fn, kernel: str | None = None, reps: int = 20) -> float:
     torch.cuda.synchronize()
     # A trace this short now and then comes back with no device
     # records at all; such a trace is taken again, at most twice.
-    for attempt in range(3):
+    for attempt in range(0 if _profiler_lost else 3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -151,11 +189,19 @@ def device_ms(fn, kernel: str | None = None, reps: int = 20) -> float:
                 and (kernel is None or kernel in e.key)]
         us = sum(e.self_device_time_total for e in rows)
         if us > 0:
-            break
+            return us / 1e3 / reps
         log(f"device_ms: profiler trace {attempt + 1} for "
             f"{kernel or fn.__name__} held no device records")
-    check(us > 0, f"the profiler saw no device time for {kernel or fn}")
-    return us / 1e3 / reps
+        time.sleep(0.5)
+    if not _profiler_lost:
+        _profiler_lost = True
+        log("device_ms: torch.profiler returns no device records any more; "
+            "every device time from here on is the CUDA-event time of a "
+            "CUDA-graph replay of the same calls (gaps between the graph's "
+            "nodes included, host launch cost not)")
+    ms = graph_ms(fn, reps)
+    check(ms > 0, f"no device time for {kernel or fn}")
+    return ms
 
 
 def tensors_of(tree):
@@ -201,7 +247,10 @@ def phase_kernels(card: str) -> dict:
              # the tracker's ZNCC patches: finest level 370x1226, pad 10
              (1, 390, 1246, 10, 10)]
     worst = 0.0
+    # Sums over the 4 depth-path crops that one odometry step made before
+    # the fused neighbor gather took them over (printed for comparison).
     step_ms = step_plain_ms = step_bound_ms = step_lib_ms = 0.0
+    record = {}
     for C, h, w, Ky, Kx in cases:
         stack = torch.from_numpy(
             rng.normal(size=(C, h, w)).astype(np.float32)).to(dev)
@@ -249,17 +298,24 @@ def phase_kernels(card: str) -> dict:
             f"bound {bound:.5f} ms by bytes, one indexing gather on ready "
             f"indices {lib_ms:.4f} ms; wrapper time (CUDA events, back-to-back calls) kernel "
             f"{wrap_ms:.4f} ms, plain {wrap_plain_ms:.4f} ms [{card}]")
-        if C == 2 and w == W:  # the main path's shapes, 2 frames each
+        if (C, h, w) == (1, 390, 1246):  # the main path: 2 per track_frame
+            record = {"ms": 2 * ms, "plain_ms": 2 * plain_ms,
+                      "bound_ms": 2 * bound, "library_ms": 2 * lib_ms}
+        if C == 2 and w == W:  # the former depth-path shapes, 2 frames each
             step_ms += 2 * ms
             step_plain_ms += 2 * plain_ms
             step_bound_ms += 2 * bound
             step_lib_ms += 2 * lib_ms
-    log(f"phase 3 kernels: per odometry step (2 frames x windows 11x8 + "
-        f"15x14, C=2), device time: kernel {step_ms:.4f} ms, plain "
-        f"{step_plain_ms:.4f} ms, bound {step_bound_ms:.5f} ms, indexing "
-        f"gather on ready indices {step_lib_ms:.4f} ms [{card}]")
-    return {"max_abs_err": worst, "ms": step_ms, "plain_ms": step_plain_ms,
-            "bound_ms": step_bound_ms, "library_ms": step_lib_ms}
+    log(f"phase 3 kernels: slice_windows per track_frame (2 ZNCC crops, C=1 "
+        f"390x1246 10x10), device time: kernel {record['ms']:.4f} ms, plain "
+        f"{record['plain_ms']:.4f} ms, bound {record['bound_ms']:.5f} ms, "
+        f"indexing gather on ready indices {record['library_ms']:.4f} ms; "
+        f"the 4 depth-path crops of one odometry step that gather_neighbors "
+        f"replaces (2 frames x windows 11x8 + 15x14, C=2): kernel "
+        f"{step_ms:.4f} ms, plain {step_plain_ms:.4f} ms, bound "
+        f"{step_bound_ms:.5f} ms, indexing gather {step_lib_ms:.4f} ms "
+        f"[{card}]")
+    return {"max_abs_err": worst, **record}
 
 
 def lk_features(rng, H, W, N, corners, patch=PATCH):
@@ -425,6 +481,234 @@ def phase_lk(card: str, img0: np.ndarray, img1: np.ndarray) -> dict:
     return tot
 
 
+def gather_features(rng, H, W, N, scales):
+    """Feature positions for the neighbor gather: uniform over the grid
+    and a margin around it, then the border cases of every scale (centres
+    inside, on and past each edge by less and by more than the half size,
+    in u, in v and in both) and NaN and infinite positions."""
+    uv = rng.uniform([-12, -12], [W + 12, H + 12], (N, 2))
+    edges = []
+    for hx, hy, _ in scales:
+        ex = [-50.0, -hx - 0.5, -hx, -0.3, 0.0, 0.4, hx - 0.1, hx,
+              W - 1 - hx, W - 1 - hx + 0.2, W - 1.0, W - 0.5, float(W),
+              W + hx, W + 50.0]
+        ey = [-50.0, -hy - 0.5, -hy, -0.3, 0.0, 0.4, hy - 0.1, hy,
+              H - 1 - hy, H - 1 - hy + 0.2, H - 1.0, H - 0.5, float(H),
+              H + hy, H + 50.0]
+        edges += ([(x, H / 2 + 0.37) for x in ex]
+                  + [(W / 2 + 0.71, y) for y in ey]
+                  + list(zip(ex, ey)) + list(zip(ex, ey[::-1])))
+    nan, inf = float("nan"), float("inf")
+    edges += [(nan, 10.0), (10.0, nan), (nan, nan), (inf, 5.0), (-inf, 5.0),
+              (5.0, inf), (5.0, -inf)]
+    check(len(edges) < N, "too few lanes for the border cases")
+    uv[N - len(edges):] = edges
+    return uv.astype(np.float32)
+
+
+def gather_bound_ms(stacks, uvs, scales, with_indices
+                    ) -> tuple[float, float, float]:
+    """The two least times the card could take for one neighbor gather:
+    its bytes (every stack and feature set read once; per scale and lane
+    mask, flags, z, points and, when asked, indices of every window cell
+    and the count written once) over the device-memory rate, and its fp32
+    operations (about 15 per cell: unpack, two pinhole products, masks)
+    over the fp32 peak.  The bound is the larger.  Also returns the MB
+    written."""
+    N = sum(uv.shape[0] for uv in uvs)
+    cells = sum(Ky * Kx for _, _, (Ky, Kx) in scales)
+    per_cell = 1 + 1 + 4 + 12 + (4 if with_indices else 0)
+    written = N * cells * per_cell + N * 4 * len(scales)
+    read = sum(s.numel() for s in stacks) * 4 + N * 8
+    return ((read + written) / PEAK_BYTES_S * 1e3,
+            15 * N * cells / PEAK_FP32_S * 1e3, written / 1e6)
+
+
+def gather_compare(what, stacks, uvs, cam, scales, with_indices) -> float:
+    """One neighbor gather through the kernel and through its plain
+    version on the same inputs: every field of every scale must be equal
+    to the bit; returns max |difference| over the float fields."""
+    import torch
+    from mono_lidar_depth_tpu_torch.core import neighbors
+
+    got = neighbors.gather_stacks_cuda(stacks, uvs, cam, scales,
+                                       with_indices)
+    torch.cuda.synchronize()
+    want = neighbors.gather_stacks_reference(stacks, uvs, cam, scales,
+                                             with_indices)
+    torch.cuda.synchronize()
+    check(len(got) == len(want) == len(scales), f"{what}: scales returned")
+    worst, cells, hits, ground = 0.0, 0, 0, 0
+    for k, (g, w) in enumerate(zip(got, want)):
+        for name in neighbors.NeighborSet._fields:
+            a, b = getattr(g, name), getattr(w, name)
+            check((a is None) == (b is None) == (
+                name == "indices" and not with_indices),
+                f"{what}: scale {k} field {name} present in one only")
+            if a is None:
+                continue
+            check(a.dtype == b.dtype and a.shape == b.shape,
+                  f"{what}: scale {k} field {name} is {a.dtype} "
+                  f"{tuple(a.shape)}, plain {b.dtype} {tuple(b.shape)}")
+            if a.is_floating_point():
+                worst = max(worst, float((a - b).abs().max()))
+            check(torch.equal(a, b),
+                  f"{what}: scale {k} field {name} differs from the plain "
+                  f"version in {int((a != b).sum())} places")
+        cells += w.mask.numel()
+        hits += int(w.mask.sum())
+        ground += int(w.flags.sum())
+    check(0 < ground < hits < cells,
+          f"{what}: the scene has {hits} neighbors, {ground} on the ground, "
+          f"in {cells} cells")
+    log(f"phase 3 kernels: gather_neighbors {what}: "
+        f"{[tuple(s.shape) for s in stacks]} stacks, "
+        f"{[uv.shape[0] for uv in uvs]} features, windows "
+        f"{[w for _, _, w in scales]}, indices {with_indices}: every field "
+        f"bit-exact; {hits} neighbors ({ground} ground-flagged) in {cells} "
+        f"cells")
+    return worst
+
+
+def phase_gather(card: str) -> dict:
+    """The fused neighbor gather against its plain version on rasterized
+    synthetic scans, at the main path's shapes and around them."""
+    import torch
+    import mono_lidar_depth_tpu_torch as T
+    from mono_lidar_depth_tpu_torch.core import neighbors
+    from mono_lidar_depth_tpu_torch.io.kitti import (make_synthetic_scan,
+                                                     pad_cloud)
+    from mono_lidar_depth_tpu_torch.tracks.pipeline import _ground_plane
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    cam = T.PinholeCamera(**KITTI_CAMERA)
+    l2c = T.SE3(torch.from_numpy(R_LC).to(dev), torch.from_numpy(T_LC).to(dev))
+    N = 2048
+
+    def frames_of(cfg, count):
+        out = []
+        for _ in range(count):
+            scan = make_synthetic_scan(rng, 120000)
+            cloud, valid = (torch.from_numpy(a).to(dev) for a in
+                            pad_cloud(scan, len(scan), cfg.max_points))
+            gp = _ground_plane(cfg, cloud, valid, gen)
+            out.append(T.rasterize_cloud(cfg, cam, l2c, cloud, valid, gp))
+        return out
+
+    def features(cfg, n, scales):
+        return torch.from_numpy(gather_features(
+            rng, cfg.image_height, cfg.image_width, n, scales)).to(dev)
+
+    cfg = T.DepthEstimatorConfig()
+    hx, hy = (cfg.pixelarea_search_witdh * 0.5,
+              cfg.pixelarea_search_height * 0.5)
+    scales = [(hx, hy, cfg.primary_window),
+              (hx * cfg.road_search_scale_x, hy * cfg.road_search_scale_y,
+               cfg.road_window)]
+    frames = frames_of(cfg, 2)
+    uvs = [features(cfg, N, scales), features(cfg, N, scales)]
+    stacks = neighbors.frame_stacks(frames, False)
+    stacks3 = neighbors.frame_stacks(frames, True)
+
+    worst = gather_compare("main path", stacks, uvs, cam, scales, False)
+    worst = max(
+        worst,
+        gather_compare("with indices", stacks3, uvs, cam, scales, True),
+        gather_compare("one frame", stacks[:1], uvs[:1], cam, scales, False),
+        gather_compare("one frame, one scale, indices", stacks3[1:], uvs[1:],
+                       cam, scales[:1], True),
+        gather_compare("unequal feature counts", stacks,
+                       [uvs[0], features(cfg, 777, scales)], cam, scales,
+                       False))
+    # An odd window pair: one narrower than a warp's round of 32 cells
+    # with an odd size, one wider than 32 cells.
+    odd = [(1.0, 2.0, (5, 3)), (19.5, 4.0, (9, 40))]
+    worst = max(worst, gather_compare(
+        "odd windows", stacks3, [features(cfg, N, odd), features(cfg, N, odd)],
+        cam, odd, True))
+    # Dense made-up stacks: most cells occupied, column 0 and row 0 too
+    # (a rasterized scan leaves them empty), which is where the NaN
+    # positions look.
+    dense = []
+    for _ in range(2):
+        hit = rng.random((384, 1248)) < 0.7
+        z = rng.uniform(1.0, 60.0, hit.shape) * np.where(
+            rng.random(hit.shape) < 0.3, -1.0, 1.0)
+        packed = (rng.integers(0, 4096, hit.shape) * 4096.0
+                  + rng.integers(0, 4096, hit.shape))
+        idx = np.where(hit, rng.integers(0, cfg.max_points, hit.shape), -1)
+        dense.append(torch.from_numpy(np.stack(
+            [np.where(hit, z, 0.0), np.where(hit, packed, 0.0),
+             idx]).astype(np.float32)).to(dev))
+    worst = max(worst, gather_compare("dense stacks", dense, uvs, cam,
+                                      scales, True))
+    wide = T.DepthEstimatorConfig(image_width=1280)
+    wide_frames = frames_of(wide, 2)
+    worst = max(worst, gather_compare(
+        "grid 384x1280", neighbors.frame_stacks(wide_frames, False),
+        [features(wide, N, scales), features(wide, N, scales)], cam, scales,
+        False))
+
+    # ---- times at the main path's shapes
+    def kernel(sc=scales):
+        return neighbors.gather_stacks_cuda(stacks, uvs, cam, sc, False)
+
+    def plain():
+        return neighbors.gather_stacks_reference(stacks, uvs, cam, scales,
+                                                 False)
+
+    # Library yardstick: the four crops alone, one advanced-indexing
+    # gather each on index tensors made outside the timed call; the
+    # decode has no library call.  Never called by the port.
+    H, W = cfg.image_height, cfg.image_width
+    ready = []
+    for stack, uv in zip(stacks, uvs):
+        for half_x, half_y, (Ky, Kx) in scales:
+            x0 = torch.nan_to_num(torch.clamp(uv[:, 0] - half_x, 0, W)).long()
+            y0 = torch.nan_to_num(torch.clamp(uv[:, 1] - half_y, 0, H)).long()
+            rows = (y0.clamp(max=H - Ky)[:, None]
+                    + torch.arange(Ky, device=dev))[:, :, None]
+            cols = (x0.clamp(max=W - Kx)[:, None]
+                    + torch.arange(Kx, device=dev))[:, None, :]
+            ready.append((stack, rows, cols))
+
+    def library():
+        return [stack[:, rows, cols] for stack, rows, cols in ready]
+
+    name = "gather_neighbors_kernel"
+    ms = device_ms(kernel, name)
+    ms_small = device_ms(lambda: kernel(scales[:1]), name)
+    ms_large = device_ms(lambda: kernel(scales[1:]), name)
+    ms_one = device_ms(lambda: neighbors.gather_stacks_cuda(
+        stacks[:1], uvs[:1], cam, scales, False), name)
+    ms_idx = device_ms(lambda: neighbors.gather_stacks_cuda(
+        stacks3, uvs, cam, scales, True), name)
+    plain_ms = device_ms(plain, reps=5)
+    lib_ms = device_ms(library)
+    wrap_ms, wrap_plain_ms = time_ms(kernel), time_ms(plain, reps=5)
+    by_bytes, by_ops, out_mb = gather_bound_ms(stacks, uvs, scales, False)
+    bound = max(by_bytes, by_ops)
+    log(f"phase 3 kernels: gather_neighbors per odometry step (2 frames x "
+        f"{N} features, {H}x{W}, windows {scales[0][2]} + {scales[1][2]}, "
+        f"C=2), device time: kernel {ms:.4f} ms in one launch "
+        f"({out_mb / ms:.1f} GB/s of output), bound {bound:.5f} ms by "
+        f"{'bytes' if by_bytes >= by_ops else 'operations'} (bytes "
+        f"{by_bytes:.5f}, operations {by_ops:.5f}), plain version (crops, "
+        f"decode chain, concatenation) {plain_ms:.4f} ms, the four indexing "
+        f"gathers of the crops alone {lib_ms:.4f} ms; the kernel on the small "
+        f"scale alone {ms_small:.4f} ms, on the large alone {ms_large:.4f} "
+        f"ms, on one frame with both scales {ms_one:.4f} ms, with the index "
+        f"plane (C=3) {ms_idx:.4f} ms; wrapper time (CUDA events, "
+        f"back-to-back calls) kernel {wrap_ms:.4f} ms, plain "
+        f"{wrap_plain_ms:.4f} ms [{card}]")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": lib_ms}
+
+
 # --------------------------------------------------------------- phase 4
 
 class Scene(NamedTuple):
@@ -495,9 +779,11 @@ def prime(sc: Scene):
 
 
 def phase_main(card: str) -> int:
+    import warnings
+
     import torch
     import mono_lidar_depth_tpu_torch as T
-    from mono_lidar_depth_tpu_torch.core import windows
+    from mono_lidar_depth_tpu_torch.core import neighbors, windows
     from mono_lidar_depth_tpu_torch.obs.stats import success_rates
     from mono_lidar_depth_tpu_torch.tracks.table import match_tracks
 
@@ -508,7 +794,8 @@ def phase_main(card: str) -> int:
         f"{cfg.ransac_num_hypotheses}x{cfg.ransac_subsample_points}, track "
         f"table {M}x12, {FRAMES} frames")
 
-    windows.launches = 0  # counts the main path's launches only
+    neighbors.launches = 0  # count the main path's launches only
+    windows.launches = 0
     t0 = time.perf_counter()
     state = prime(sc)
     step_ms, outs, outcomes, counters = [], [], [], []
@@ -529,11 +816,12 @@ def phase_main(card: str) -> int:
         step_ms.append((start, stop))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = windows.launches
+    launches, crops = neighbors.launches, windows.launches
     step_ms = [a.elapsed_time(b) for a, b in step_ms]
 
-    check(launches == 4 * FRAMES,
-          f"window kernel launched {launches} times, want {4 * FRAMES}")
+    check(launches == FRAMES and crops == 0,
+          f"{launches} gather_neighbors and {crops} slice_windows launches "
+          f"in {FRAMES} steps, want {FRAMES} and 0")
     leaves = list(tensors_of((state, outs, counters)))
     check(all(x.is_cuda for x in leaves), "a main-path tensor left the GPU")
     for k, (R_cw, t_cw, diag) in enumerate(outs):
@@ -568,14 +856,47 @@ def phase_main(card: str) -> int:
         f"({int(total.sum())} outcomes), success share "
         f"{rates['success_rate_all']:.4f} (lidar-covered "
         f"{rates['success_rate_lidar_covered']:.4f}) > floor "
-        f"{SUCCESS_FLOOR}, window-kernel launches {launches} == 4 x "
-        f"{FRAMES}, all tensors on {leaves[0].device}; last t_cw {t_last}")
+        f"{SUCCESS_FLOOR}, gather_neighbors launches {launches} == "
+        f"{FRAMES} (one per step), slice_windows launches {crops}, all "
+        f"tensors on {leaves[0].device}; last t_cw {t_last}")
     log(f"phase 4 main: per-frame odometry step (CUDA events) median "
         f"{float(np.median(step_ms)):.3f} ms, first {step_ms[0]:.3f} ms, "
         f"all {[round(x, 3) for x in step_ms]}; prime + {FRAMES} steps "
         f"wall {wall:.3f} s [{card}]")
     log("phase 4 main: outcome counters " + json.dumps(
         [int(c) for c in total]))
+
+    # No host sync inside the fused depth pair's neighbor gather, and the
+    # syncs of a whole step named by where they happen.
+    last, tr = sc.inputs[-1], state.tracklets
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as in_gather:
+            warnings.simplefilter("always")
+            neighbors.gather_neighbors_two_scales(
+                tr.frame_last, sc.cam, last.uv_new, 3.0, 4.5, 2.0, 1.5,
+                cfg.primary_window, cfg.road_window, with_indices=False)
+            neighbors.gather_neighbors_frames(
+                [tr.frame_last, tr.frame_last], [last.uv_prev, last.uv_new],
+                sc.cam, [(3.0, 4.5, cfg.primary_window)], with_indices=True)
+        with warnings.catch_warnings(record=True) as in_step:
+            warnings.simplefilter("always")
+            T.odometry_step(cfg, sc.ocfg, sc.cam, sc.lidar_to_cam, state,
+                            last)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+    def syncs(caught):
+        return [f"{w.filename.rsplit('/', 2)[-2]}/"
+                f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
+                for w in caught if "synchroniz" in str(w.message)]
+
+    check(not syncs(in_gather),
+          f"the neighbor gather synchronized with the host: "
+          f"{syncs(in_gather)[:3]}")
+    log(f"phase 4 main: no host sync inside the neighbor gather (sync debug "
+        f"mode); host syncs of one odometry step: {syncs(in_step)}")
     return launches
 
 
@@ -713,7 +1034,7 @@ def phase_images(card: str, seq, render_s: float) -> dict:
     import mono_lidar_depth_tpu_torch as T
     from mono_lidar_depth_tpu_torch.convert import (state_from_numpy,
                                                     state_to_numpy)
-    from mono_lidar_depth_tpu_torch.core import windows
+    from mono_lidar_depth_tpu_torch.core import neighbors, windows
     from mono_lidar_depth_tpu_torch.core.ransac import RansacDraws
     from mono_lidar_depth_tpu_torch.eval.kitti_eval import _dev_img
     from mono_lidar_depth_tpu_torch.io.kitti import pad_cloud
@@ -739,15 +1060,17 @@ def phase_images(card: str, seq, render_s: float) -> dict:
     prime: list = []
     frames = T.frame_inputs(seq, cfg, prime=prime, pyramid_levels=LEVELS,
                             device=dev, rng=gen)
-    klt.launches = 0
-    windows.launches = 0
+    def launched():
+        return (klt.launches, windows.launches, neighbors.launches)
+
+    klt.launches = windows.launches = neighbors.launches = 0
     counts, events, inputs, outs = [], [], [], []
     t0 = time.perf_counter()
     for k in range(steps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
         frame, f = next(frames)
-        after_track = (klt.launches, windows.launches)
+        after_track = launched()
         if k == 0:
             state = state._replace(tracklets=T.prime_state(
                 cfg, cam, l2c, state.tracklets, prime[0][0], prime[0][1],
@@ -756,24 +1079,25 @@ def phase_images(card: str, seq, render_s: float) -> dict:
         state, R_cw, t_cw, diag = T.odometry_step(cfg, ocfg, cam, l2c, state,
                                                   frame)
         ev[2].record()
-        counts.append(after_track + (klt.launches, windows.launches))
+        counts.append(after_track + launched())
         events.append(ev)
         inputs.append(frame)
         outs.append((R_cw, t_cw, diag))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    lk_launches, win_launches = klt.launches, windows.launches
+    total = launched()
     check(next(frames, None) is None, "frame_inputs yielded too many frames")
 
-    # counts: cumulative (lk, windows) after track_frame and after the step
+    # counts: cumulative (lk_level, slice_windows, gather_neighbors) after
+    # track_frame and after the step
     c = np.asarray(counts)
-    before = np.concatenate([[[0, 0]], c[:-1, 2:]])
-    in_track, in_step = c[:, :2] - before, c[:, 2:] - c[:, :2]
-    check(bool((in_track == [2 * LEVELS, 2]).all()
-               and (in_step == [0, 4]).all()),
-          f"launches (lk_level, slice_windows) per frame: track_frame "
-          f"{in_track.tolist()}, want [{2 * LEVELS}, 2]; odometry_step "
-          f"{in_step.tolist()}, want [0, 4]")
+    before = np.concatenate([[[0, 0, 0]], c[:-1, 3:]])
+    in_track, in_step = c[:, :3] - before, c[:, 3:] - c[:, :3]
+    check(bool((in_track == [2 * LEVELS, 2, 0]).all()
+               and (in_step == [0, 0, 1]).all()),
+          f"launches (lk_level, slice_windows, gather_neighbors) per frame: "
+          f"track_frame {in_track.tolist()}, want [{2 * LEVELS}, 2, 0]; "
+          f"odometry_step {in_step.tolist()}, want [0, 0, 1]")
     leaves = list(tensors_of((state, outs, inputs)))
     check(all(x.is_cuda for x in leaves), "an image-path tensor left the GPU")
 
@@ -809,8 +1133,9 @@ def phase_images(card: str, seq, render_s: float) -> dict:
     ms_in = [e[0].elapsed_time(e[1]) for e in events]
     ms_step = [e[1].elapsed_time(e[2]) for e in events]
     log(f"phase 6 images: {steps} frames ok: per frame {2 * LEVELS} lk_level "
-        f"+ 2 + 4 slice_windows launches (totals {lk_launches}, "
-        f"{win_launches}), all tensors on {leaves[0].device}; emitted share "
+        f"+ 2 slice_windows launches in track_frame and 1 gather_neighbors "
+        f"in odometry_step (totals {list(total)}), all tensors on "
+        f"{leaves[0].device}; emitted share "
         f"of lanes {[round(x, 4) for x in emit]} > floor {EMIT_FLOOR} from "
         f"the second frame on; ids kept frame to frame {kept}; diag "
         f"[tracks, inliers, err px] of the last frame "
@@ -829,15 +1154,14 @@ def phase_images(card: str, seq, render_s: float) -> dict:
         f"{wall:.3f} s [{card}]")
 
     # ---- the same frames through the sequence entry point
-    klt.launches = 0
-    windows.launches = 0
+    klt.launches = windows.launches = neighbors.launches = 0
     t0 = time.perf_counter()
     res = T.eval_vo_sequence(seq, cfg, ocfg, max_tracks=N, max_length=12,
                              verbose=False, device=dev, seed=SEED)
     eval_s = time.perf_counter() - t0
-    check((klt.launches, windows.launches) == (lk_launches, win_launches),
-          f"eval_vo_sequence launched ({klt.launches}, {windows.launches}) "
-          f"kernels, the frame loop ({lk_launches}, {win_launches})")
+    check(launched() == total,
+          f"eval_vo_sequence launched {launched()} kernels (lk_level, "
+          f"slice_windows, gather_neighbors), the frame loop {total}")
     check(res["frames"] == steps and res["frame_ids"] == list(
         range(1, len(seq))), f"eval_vo_sequence frames {res['frame_ids']}")
     # Same seed and the same order of RANSAC draws as the loop above; the
@@ -853,7 +1177,8 @@ def phase_images(card: str, seq, render_s: float) -> dict:
           f"loop's {full['trans_rmse']:.4f} m")
     log(f"phase 6 images: eval_vo_sequence over the same frames in "
         f"{eval_s:.3f} s: {klt.launches} lk_level + {windows.launches} "
-        f"slice_windows launches as the frame loop; poses against the "
+        f"slice_windows + {neighbors.launches} gather_neighbors launches as "
+        f"the frame loop; poses against the "
         f"loop's max |dR| {dR:.2e}, max |dt| {dt:.2e} m; over all {steps} "
         f"frames ATE {res['ate_rmse']:.4f} m, RPE trans "
         f"{res['rpe_trans_rmse']:.4f} m (loop {full['trans_rmse']:.4f} m) "
@@ -940,7 +1265,8 @@ def phase_images(card: str, seq, render_s: float) -> dict:
           f"card/CPU tracked positions differ by {max(uv_err):.2e} px")
     check(dR <= 1e-3 and dt <= 5e-3,
           f"card/CPU image-path poses differ: |dR| {dR:.2e}, |dt| {dt:.2e}")
-    return {"lk_level": lk_launches, "slice_windows": win_launches}
+    return dict(zip(("lk_level", "slice_windows", "gather_neighbors"),
+                    total))
 
 
 def main() -> int:
@@ -963,7 +1289,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build()
     info = dict(kernels.build_info)
-    for lib in ("windows", "lk_level"):
+    for lib in ("windows", "lk_level", "gather_neighbors"):
         kernels.library(lib)
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if "registers" in ln or "spill" in ln]
@@ -980,22 +1306,24 @@ def main() -> int:
 
     kern = phase_kernels(card)
     lk = phase_lk(card, seq.image(0), seq.image(1))
+    gather = phase_gather(card)
     launches = phase_main(card)
     phase_agree(card)
     img_launches = phase_images(card, seq, render_s)
 
-    # Per kernel: `launches` of its main path's run (slice_windows: the
-    # feature-fed path of phase 4 plus the image-fed path of phase 6);
-    # ms, plain_ms, bound_ms: device time of the kernel's launches in one
-    # frame (slice_windows: the 4 crops of one odometry step; lk_level:
-    # the 2 passes x 4 levels of one track_frame).  library_ms: for
-    # slice_windows the indexing gather of the same 4 crops on ready
-    # indices, for lk_level grid_sample doing the iterations' patch
-    # sampling alone.
+    # Per kernel: `launches` of its main paths' runs (phase 4's
+    # feature-fed path plus phase 6's image-fed path; the window crop and
+    # the LK level run on the image-fed path only); ms, plain_ms, bound_ms:
+    # device time of the kernel's launches in one frame (slice_windows:
+    # the 2 ZNCC crops of one track_frame; lk_level: the 2 passes x 4
+    # levels of one track_frame; gather_neighbors: the one launch of one
+    # odometry step).  library_ms: for slice_windows the indexing gather
+    # of the same crops on ready indices, for lk_level grid_sample doing
+    # the iterations' patch sampling alone, for gather_neighbors the four
+    # indexing gathers of its crops alone (no decode).
     log(json.dumps({"kernels": [
         {"name": "slice_windows", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES,
-         "launches": launches + img_launches["slice_windows"],
+         "replaces": REPLACES, "launches": img_launches["slice_windows"],
          "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
          "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
          "bound_by": "bytes", "library_ms": kern["library_ms"]},
@@ -1003,7 +1331,14 @@ def main() -> int:
          "replaces": REPLACES, "launches": img_launches["lk_level"],
          "max_abs_err": lk["max_abs_err"], "ms": lk["ms"],
          "plain_ms": lk["plain_ms"], "bound_ms": lk["bound_ms"],
-         "bound_by": lk["bound_by"], "library_ms": lk["library_ms"]}]}))
+         "bound_by": lk["bound_by"], "library_ms": lk["library_ms"]},
+        {"name": "gather_neighbors", "route": "cuda", "source": GATHER_SOURCE,
+         "replaces": REPLACES,
+         "launches": launches + img_launches["gather_neighbors"],
+         "max_abs_err": gather["max_abs_err"], "ms": gather["ms"],
+         "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
+         "bound_by": gather["bound_by"],
+         "library_ms": gather["library_ms"]}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -20,7 +20,7 @@ from ..obs.stats import count_codes
 from .geometry import (SE3, PinholeCamera, dot3, plane_from_points,
                        point_plane_distance, ray_plane_intersection)
 from .histogram import filter_points_min_dist_blob
-from .neighbors import NeighborSet, gather_neighbors, gather_neighbors_two_scales
+from .neighbors import NeighborSet, gather_neighbors_frames
 from .planefit import (check_planar, check_xz_flatness, first_three_points,
                        least_squares_plane, max_spanning_triangle,
                        mestimator_plane, pca_classify)
@@ -124,18 +124,19 @@ def plane_to_camera(lidar_to_cam: SE3, coeffs: torch.Tensor) -> torch.Tensor:
     return torch.cat([n_c, d_c[None]])
 
 
-def _gather_two_scales(cfg, camera, frame: FrameCloud, features_uv):
-    """Window gathers for both search scales (primary + road retry)."""
+def _gather_two_scales(cfg, camera, frames, uvs):
+    """Window gathers for both search scales (primary + road retry) over
+    the features of all `frames`, joined in one lane order: one kernel
+    launch on the card."""
     hx = cfg.pixelarea_search_witdh * 0.5
     hy = cfg.pixelarea_search_height * 0.5
+    scales = [(hx, hy, cfg.primary_window)]
     if cfg.do_use_ransac_plane:
-        return gather_neighbors_two_scales(
-            frame, camera, features_uv, hx, hy,
-            cfg.road_search_scale_x, cfg.road_search_scale_y,
-            cfg.primary_window, cfg.road_window, with_indices=False)
-    nb1 = gather_neighbors(frame, camera, features_uv, hx, hy,
-                           cfg.primary_window, with_indices=False)
-    return nb1, None
+        scales.append((hx * cfg.road_search_scale_x,
+                       hy * cfg.road_search_scale_y, cfg.road_window))
+    nbs = gather_neighbors_frames(frames, uvs, camera, scales,
+                                  with_indices=False)
+    return nbs[0], (nbs[1] if cfg.do_use_ransac_plane else None)
 
 
 def estimate_depths_from_frame(
@@ -151,17 +152,10 @@ def estimate_depths_from_frame(
     _check_supported(cfg)
     if cfg.set_all_depths_to_zero:
         return _all_zero_depths(features_valid)
-    nb1, nb2 = _gather_two_scales(cfg, camera, frame, features_uv)
+    nb1, nb2 = _gather_two_scales(cfg, camera, [frame], [features_uv])
     return _depth_cascade(
         cfg, camera, nb1, nb2, features_uv, features_valid,
         plane_to_camera(lidar_to_cam, ground_plane.coeffs), ground_plane.ok)
-
-
-def _cat_neighbors(a: Optional[NeighborSet], b: Optional[NeighborSet]):
-    if a is None:
-        return None
-    return NeighborSet(*(None if x is None else torch.cat([x, y], dim=0)
-                         for x, y in zip(a, b)))
 
 
 def estimate_depths_pair(
@@ -177,18 +171,16 @@ def estimate_depths_pair(
     valid_b: torch.Tensor,
     gp_b: GroundPlane,
 ) -> tuple[DepthEstimate, DepthEstimate]:
-    """Two feature sets against two frames in one fused cascade: the
-    window gathers stay per frame (4 window-kernel launches: 2 scales x
-    2 frames), everything downstream runs once over the [2N] lanes."""
+    """Two feature sets against two frames in one fused cascade: one
+    gather over both frames and both scales (one kernel launch), then
+    everything downstream once over the [Na + Nb] lanes."""
     _check_supported(cfg)
     if cfg.set_all_depths_to_zero:
         return _all_zero_depths(valid_a), _all_zero_depths(valid_b)
 
     Na, Nb = uv_a.shape[0], uv_b.shape[0]
-    nb1a, nb2a = _gather_two_scales(cfg, camera, frame_a, uv_a)
-    nb1b, nb2b = _gather_two_scales(cfg, camera, frame_b, uv_b)
-    nb1 = _cat_neighbors(nb1a, nb1b)
-    nb2 = _cat_neighbors(nb2a, nb2b)
+    nb1, nb2 = _gather_two_scales(cfg, camera, [frame_a, frame_b],
+                                  [uv_a, uv_b])
     uv = torch.cat([uv_a, uv_b])
     valid = torch.cat([valid_a, valid_b])
     coeffs = torch.cat([

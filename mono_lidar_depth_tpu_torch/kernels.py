@@ -28,6 +28,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+class GatherScale(ctypes.Structure):
+    """One search scale of csrc/gather_neighbors.cu (MldGatherScale): the
+    rectangle's half sizes, the static window and the output pointers."""
+
+    _fields_ = [("half_x", _cf), ("half_y", _cf), ("ky", ctypes.c_int32),
+                ("kx", ctypes.c_int32), ("mask", _vp), ("z", _vp),
+                ("flags", _vp), ("points", _vp), ("count", _vp),
+                ("indices", _vp)]
+
+
 # library (source stem) -> entry point -> argument types; every entry
 # point returns cudaGetLastError() as an int.
 _ENTRY_POINTS = {
@@ -36,6 +48,9 @@ _ENTRY_POINTS = {
     "lk_level": {"mld_lk_level": [_vp, _vp, _vp, _vp, _vp, _vp,
                                   _ci, _ci, _ci, _ci, _ci,
                                   _cf, _cf, _cf, _cf, _vp]},
+    "gather_neighbors": {"mld_gather_neighbors": [
+        _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _cf, _cf, _cf,
+        ctypes.POINTER(GatherScale), _ci, _vp]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

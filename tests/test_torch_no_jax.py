@@ -4,11 +4,13 @@ scripts import without PIL or yaml, which the machine with the card lacks,
 and no public function defaults to the CPU."""
 
 import ast
+import ctypes
 import dataclasses
 import importlib
 import inspect
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -81,7 +83,46 @@ def test_new_modules_are_covered():
     have = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
     assert {"tracker/harris.py", "tracker/klt.py", "tracker/frontend.py",
             "tracker/__init__.py", "eval/kitti_eval.py",
-            "io/synthetic_dataset.py", "vo/metrics.py", "device.py"} <= have
+            "io/synthetic_dataset.py", "vo/metrics.py", "device.py",
+            "core/neighbors.py", "core/windows.py", "kernels.py"} <= have
+
+
+@pytest.mark.parametrize("source", sorted(
+    p.name for p in (PKG / "csrc").glob("*.cu")))
+def test_kernel_source_is_bound(source):
+    """Every CUDA source is a library of kernels.py: each entry point
+    declared there is an `extern "C" int` function of the source with as
+    many parameters as argument types, and the source shares the error
+    text helper."""
+    from mono_lidar_depth_tpu_torch import kernels
+
+    text = (PKG / "csrc" / source).read_text()
+    entry_points = kernels._ENTRY_POINTS[source[:-len(".cu")]]
+    found = {name: params for name, params in re.findall(
+        r'extern "C" int (\w+)\(([^)]*)\)', text)}
+    assert set(found) == set(entry_points)
+    for name, argtypes in entry_points.items():
+        assert len(found[name].split(",")) == len(argtypes), name
+    assert '#include "common.cuh"' in text
+    assert "jax" not in re.sub(r"//.*", "", text).lower()
+
+
+def test_gather_scale_layout_matches_the_source():
+    """kernels.GatherScale mirrors `struct MldGatherScale` field for
+    field: names, order, sizes."""
+    from mono_lidar_depth_tpu_torch import kernels
+
+    text = (PKG / "csrc" / "gather_neighbors.cu").read_text()
+    body = re.search(r"struct MldGatherScale \{(.*?)\};", text, re.S).group(1)
+    body = re.sub(r"//.*", "", body)
+    c_fields = []
+    for ctype, names in re.findall(r"(\w+\*?)\s+([\w, ]+);", body):
+        c_fields += [(n.strip(), ctype) for n in names.split(",")]
+    size = {"float": 4, "int32_t": 4}
+    py_fields = [(n, ctypes.sizeof(t)) for n, t in kernels.GatherScale._fields_]
+    assert py_fields == [(n, size.get(t, 8)) for n, t in c_fields]
+    assert ctypes.sizeof(kernels.GatherScale) == 64
+    assert "gather_neighbors" in kernels._ENTRY_POINTS
 
 
 def _public_callables():
