@@ -33,9 +33,11 @@ Phases, each printed on its own lines:
                points, 2,048-slot track table of length 12), with the
                launch counts of the kernels reset just before and read
                just after (one neighbor gather per step, no window
-               crop); outputs finite, every step's codes in range and
+               crop, no tracker kernel); outputs finite, every step's codes in range and
                counted, success share above its floor, everything on
-               the card; no host sync inside the neighbor gather.
+               the card; no host sync inside the neighbor gather, and
+               exactly one in a whole step (vo/pipeline.py's read of its
+               two branch predicates).
   5. agree   — a small metric world run on the card and on the CPU
                (the plain versions) from the same RANSAC draws: poses
                and codes agree, poses track the ground truth.
@@ -43,8 +45,9 @@ Phases, each printed on its own lines:
                frames of the synthetic sequence (1226x370 images, 32x900
                lidar scans) rendered in memory, then `init_tracker` and
                per frame `track_frame` + `odometry_step` through
-               `frame_inputs`, with all three kernels' launch counts read
-               after every frame; state on the card, no host sync inside
+               `frame_inputs`, with every kernel's launch count read
+               after every frame (8 LK levels and 1 gate per
+               `track_frame`, 1 neighbor gather per step, no crop); state on the card, no host sync inside
                `track_frame`, ids persistent, poses finite and on the
                ground truth's path, the same frames through
                `eval_vo_sequence` with the same poses and launch counts,
@@ -75,6 +78,7 @@ REPLACES = "mono_lidar_depth_tpu/core/pallas_windows.py:95"
 SOURCE = "mono_lidar_depth_tpu_torch/csrc/windows.cu"
 LK_SOURCE = "mono_lidar_depth_tpu_torch/csrc/lk_level.cu"
 GATHER_SOURCE = "mono_lidar_depth_tpu_torch/csrc/gather_neighbors.cu"
+GATE_SOURCE = "mono_lidar_depth_tpu_torch/csrc/zncc_gate.cu"
 # The tracker's settings on the image-fed path (the eval harness's).
 LEVELS, PATCH, LK_ITERS, MIN_DET = 4, 9, 8, 1e-4
 # The other patch sizes held against the plain version (no timing): with
@@ -88,6 +92,21 @@ OTHER_PATCHES = (5, 7, 11, 13, 15)
 # of the lanes.
 LK_TOL_PX = 1e-3
 LK_OK_SHARE = 0.999
+# The tracker's gate thresholds (track_features' defaults, which
+# track_frame leaves alone).
+MIN_NCC, FB_THRESHOLD = 0.6, 1.0
+# The fused gate against its plain version: every elementwise step is the
+# plain version's to the bit and the five patch sums run in another order.
+# `ncc` must lie within GATE_TOL of the plain one; `ok` must be equal on
+# every lane whose plain `ncc` and forward-backward error are farther than
+# GATE_TOL from their thresholds, and on GATE_OK_SHARE of all lanes.  A
+# lane whose patches are flat has a denominator under the 1e-8 floor of
+# `_zncc` up to rounding, so its `ncc` is rounding noise over that floor
+# in either version: such lanes (plain denominator under GATE_FLAT_DEN)
+# are held to |ncc| <= GATE_FLAT_NCC in both and not compared.
+GATE_TOL = 1e-5
+GATE_OK_SHARE = 0.999
+GATE_FLAT_DEN, GATE_FLAT_NCC = 1e-6, 2e-4
 # Share of the 2,048 lanes that `track_frame` emits per frame on the
 # synthetic sequence: the floor sits just under the measured minimum.
 EMIT_FLOOR = 0.6
@@ -244,7 +263,7 @@ def phase_kernels(card: str) -> dict:
     H, W, N = 384, 1248, 2048
     cases = [(2, H, W, 11, 8), (2, H, W, 15, 14), (3, H, W, 11, 8),
              (3, H, W, 15, 14), (2, H, 1280, 11, 8), (1, H, W, 12, 12),
-             # the tracker's ZNCC patches: finest level 370x1226, pad 10
+             # the tracker's former ZNCC crops: finest level 370x1226, pad 10
              (1, 390, 1246, 10, 10)]
     worst = 0.0
     # Sums over the 4 depth-path crops that one odometry step made before
@@ -298,7 +317,7 @@ def phase_kernels(card: str) -> dict:
             f"bound {bound:.5f} ms by bytes, one indexing gather on ready "
             f"indices {lib_ms:.4f} ms; wrapper time (CUDA events, back-to-back calls) kernel "
             f"{wrap_ms:.4f} ms, plain {wrap_plain_ms:.4f} ms [{card}]")
-        if (C, h, w) == (1, 390, 1246):  # the main path: 2 per track_frame
+        if (C, h, w) == (1, 390, 1246):  # the 2 crops zncc_gate replaces
             record = {"ms": 2 * ms, "plain_ms": 2 * plain_ms,
                       "bound_ms": 2 * bound, "library_ms": 2 * lib_ms}
         if C == 2 and w == W:  # the former depth-path shapes, 2 frames each
@@ -306,8 +325,9 @@ def phase_kernels(card: str) -> dict:
             step_plain_ms += 2 * plain_ms
             step_bound_ms += 2 * bound
             step_lib_ms += 2 * lib_ms
-    log(f"phase 3 kernels: slice_windows per track_frame (2 ZNCC crops, C=1 "
-        f"390x1246 10x10), device time: kernel {record['ms']:.4f} ms, plain "
+    log(f"phase 3 kernels: slice_windows, the 2 ZNCC crops of one "
+        f"track_frame that zncc_gate replaces (C=1 390x1246 10x10), device "
+        f"time: kernel {record['ms']:.4f} ms, plain "
         f"{record['plain_ms']:.4f} ms, bound {record['bound_ms']:.5f} ms, "
         f"indexing gather on ready indices {record['library_ms']:.4f} ms; "
         f"the 4 depth-path crops of one odometry step that gather_neighbors "
@@ -318,20 +338,25 @@ def phase_kernels(card: str) -> dict:
     return {"max_abs_err": worst, **record}
 
 
-def lk_features(rng, H, W, N, corners, patch=PATCH):
-    """Feature positions and start guesses for one level: detected
-    corners, uniform random positions, and the border cases — centres
-    within the clamp slack of each edge, on it and past it."""
+def border_centres(H, W, patch):
+    """Patch centres within the clamp slack of each edge, on it and past
+    it, in u, in v and in both."""
     slack = (patch - 1) // 2 + 1
-    uv = rng.uniform([0, 0], [W - 1, H - 1], (N, 2))
-    uv[: N // 2] = corners[: N // 2]
     edge_x = [-slack - 2.5, -slack + 0.5, -0.25, 0.0, 0.6, W - 1.5, W - 1.0,
               W - 0.3, W - 1 + slack - 0.2, W + slack + 3.0]
     edge_y = [-slack - 2.5, -slack + 0.5, -0.25, 0.0, 0.6, H - 1.5, H - 1.0,
               H - 0.3, H - 1 + slack - 0.2, H + slack + 3.0]
-    edges = ([(x, H / 2 + 0.37) for x in edge_x]
-             + [(W / 2 + 0.71, y) for y in edge_y]
-             + list(zip(edge_x, edge_y)) + list(zip(edge_x, edge_y[::-1])))
+    return ([(x, H / 2 + 0.37) for x in edge_x]
+            + [(W / 2 + 0.71, y) for y in edge_y]
+            + list(zip(edge_x, edge_y)) + list(zip(edge_x, edge_y[::-1])))
+
+
+def lk_features(rng, H, W, N, corners, patch=PATCH):
+    """Feature positions and start guesses for one level: detected
+    corners, uniform random positions, and the border cases."""
+    uv = rng.uniform([0, 0], [W - 1, H - 1], (N, 2))
+    uv[: N // 2] = corners[: N // 2]
+    edges = border_centres(H, W, patch)
     uv[N - len(edges):] = edges
     guess = uv + rng.normal(0.0, 1.0, (N, 2))
     return uv.astype(np.float32), guess.astype(np.float32)
@@ -709,6 +734,257 @@ def phase_gather(card: str) -> dict:
             "library_ms": lib_ms}
 
 
+def gate_lanes(rng, H, W, N, patch, tracked):
+    """The gate's inputs for N lanes as numpy arrays (uv, uv_f, uv_b,
+    valid, ok_f, ok_b): first the `tracked` lanes as they are (the results
+    of a real forward and backward pass), then random positions whose
+    forward-backward error straddles its threshold, and last the special
+    lanes: `border_centres`, tracked positions on and beside the in-image
+    limits, backward errors on and beside the threshold, NaN and infinite
+    coordinates in each of the three position arrays."""
+    uv = rng.uniform([0, 0], [W - 1, H - 1], (N, 2))
+    uv_f = uv + rng.normal(0.0, 1.0, (N, 2))
+    uv_b = uv + rng.normal(0.0, 0.7, (N, 2))
+    flags = [rng.random(N) < 0.9 for _ in range(3)]
+    n = len(tracked[0])
+    uv[:n], uv_f[:n], uv_b[:n] = tracked[:3]
+    for flag, real in zip(flags, tracked[3:]):
+        flag[:n] = real
+    special = [(e, (e[0] + 0.4, e[1] - 0.3), (e[0] + 0.1, e[1]))
+               for e in border_centres(H, W, patch)]
+    c = (W / 2 + 0.25, H / 2 + 0.5)
+    f32 = np.float32
+    nan, inf = float("nan"), float("inf")
+    for lim_x, lim_y in ((1.0, c[1]), (W - 2.0, c[1]), (c[0], 1.0),
+                         (c[0], H - 2.0)):
+        for toward in (None, -inf, inf):  # on the limit, one float beside
+            special.append((c, tuple(
+                float(lim if toward is None
+                      else np.nextafter(f32(lim), f32(toward)))
+                for lim in (lim_x, lim_y)), c))
+    one = FB_THRESHOLD
+    for d in (one, float(np.nextafter(f32(one), f32(0))),
+              float(np.nextafter(f32(one), f32(2))), 0.6):
+        special.append((c, (c[0] + 1, c[1]), (c[0] + d, c[1])))
+        special.append((c, (c[0] + 1, c[1]), (c[0] + 0.8 * d, c[1] - 0.6 * d)))
+    for bad in (nan, inf, -inf):
+        for k in range(3):
+            for axis in range(2):
+                lane = [list(c), [c[0] + 1, c[1]], list(c)]
+                lane[k][axis] = bad
+                special.append(tuple(map(tuple, lane)))
+        special.append(((bad, bad),) * 3)
+    check(n + len(special) < N, "too few lanes for the special cases")
+    for i, (a, b, back) in enumerate(special, N - len(special)):
+        uv[i], uv_f[i], uv_b[i] = a, b, back
+        for flag in flags:
+            flag[i] = True  # the special lanes pass or fail on merit
+    return (uv.astype(f32), uv_f.astype(f32), uv_b.astype(f32), *flags)
+
+
+def tracked_gate_lanes(rng, pyr0, pyr1, N, patch, n_tracked=1400):
+    """The gate's inputs on the card for the finest level of two pyramids:
+    corners tracked forward and backward over all their levels, then
+    `gate_lanes`' other cases."""
+    import torch
+    from mono_lidar_depth_tpu_torch.tracker import harris, klt
+
+    H, W = pyr0[0].shape
+    uv, valid = harris.detect_features(pyr0[0], n_tracked, cell_size=4,
+                                       border=2)
+    uv_f, ok_f = klt._pyramidal(pyr0, pyr1, uv, patch, LK_ITERS, MIN_DET)
+    uv_b, ok_b = klt._pyramidal(pyr1, pyr0, uv_f, patch, LK_ITERS, MIN_DET,
+                                guess=uv)
+    tracked = [x.cpu().numpy() for x in (uv, uv_f, uv_b, valid, ok_f, ok_b)]
+    return [torch.from_numpy(x).to(uv.device) for x in
+            gate_lanes(rng, H, W, N, patch, tracked)]
+
+
+def gate_compare(prev, nxt, lanes, patch: int) -> float:
+    """The gate through the kernel and through its plain version on the
+    same inputs: checks the bars and returns max |ncc - plain| over the
+    lanes that are compared."""
+    import torch
+    from mono_lidar_depth_tpu_torch.tracker import klt
+
+    H, W = prev.shape
+    uv, uv_f, uv_b = lanes[:3]
+    N = uv.shape[0]
+    got_ok, got_ncc = klt._track_gate_cuda(prev, nxt, *lanes, patch, MIN_NCC,
+                                           FB_THRESHOLD)
+    torch.cuda.synchronize()
+    want_ok, want_ncc = klt._track_gate_reference(prev, nxt, *lanes, patch,
+                                                  MIN_NCC, FB_THRESHOLD)
+    # the plain version's denominator and forward-backward error, from
+    # its own parts
+    a = klt._bilinear_patches(prev, uv, patch)
+    b = klt._bilinear_patches(nxt, uv_f, patch)
+    am = a - torch.mean(a, dim=1, keepdim=True)
+    bm = b - torch.mean(b, dim=1, keepdim=True)
+    den = torch.sqrt(torch.sum(am * am, dim=1) * torch.sum(bm * bm, dim=1))
+    d = uv_b - uv
+    fb_err = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+    torch.cuda.synchronize()
+    what = f"zncc_gate {H}x{W} N={N} patch {patch}"
+    check(got_ok.dtype == torch.bool and got_ncc.dtype == torch.float32
+          and got_ok.shape == want_ok.shape == got_ncc.shape == (N,),
+          f"{what}: output types or shapes")
+    nan_lane = torch.isnan(uv).any(1) | torch.isnan(uv_f).any(1)
+    check(torch.equal(torch.isnan(want_ncc), nan_lane)
+          and torch.equal(torch.isnan(got_ncc), nan_lane),
+          f"{what}: ncc is not NaN exactly on the lanes with a NaN "
+          f"coordinate in uv or uv_f")
+    bad = ~(torch.isfinite(uv).all(1) & torch.isfinite(uv_f).all(1)
+            & torch.isfinite(uv_b).all(1))
+    check(int(bad.sum()) >= 21 and not bool(got_ok[bad].any())
+          and not bool(want_ok[bad].any()),
+          f"{what}: a lane with a non-finite coordinate passed")
+    flat = den < GATE_FLAT_DEN
+    held = ~nan_lane & ~flat
+    worst = float((got_ncc - want_ncc).abs()[held].max())
+    flat_worst = (float(torch.cat([got_ncc[flat], want_ncc[flat]]).abs()
+                        .max()) if bool(flat.any()) else 0.0)
+    decided = ~(((want_ncc - MIN_NCC).abs() <= GATE_TOL)
+                | ((fb_err - FB_THRESHOLD).abs() <= GATE_TOL))
+    equal = got_ok == want_ok
+    share = float(equal.float().mean())
+    log(f"phase 3 kernels: {what}: ok lanes kernel {int(got_ok.sum())} plain "
+        f"{int(want_ok.sum())}, ok equal on {share:.5f} of all lanes and on "
+        f"{int(equal[decided].sum())} of the {int(decided.sum())} lanes "
+        f"farther than {GATE_TOL} from a threshold; max |ncc - plain| "
+        f"{worst:.3e} on {int(held.sum())} lanes, {int(flat.sum())} flat "
+        f"lanes with |ncc| <= {flat_worst:.2e}, {int(nan_lane.sum())} NaN "
+        f"lanes NaN in both, {int(bad.sum())} non-finite lanes rejected")
+    check(worst <= GATE_TOL, f"{what}: max |ncc - plain| {worst:.3e} > "
+                             f"{GATE_TOL}")
+    check(flat_worst <= GATE_FLAT_NCC,
+          f"{what}: |ncc| {flat_worst:.2e} on a flat lane")
+    check(bool(equal[decided].all()),
+          f"{what}: ok differs on {int((~equal[decided]).sum())} lanes away "
+          f"from the thresholds")
+    check(share >= GATE_OK_SHARE, f"{what}: ok agrees on {share:.5f} < "
+                                  f"{GATE_OK_SHARE}")
+    check(0 < int(want_ok.sum()) < N - int(bad.sum()),
+          f"{what}: the gate passes {int(want_ok.sum())} of {N} lanes")
+    return worst
+
+
+def gate_bound_ms(H, W, N, patch) -> tuple[float, float]:
+    """The two least times the card could take for one gate: its bytes
+    (both images, three positions and three flags per lane read once, ok
+    and ncc written once) over the device-memory rate, and its fp32
+    operations (per patch tap: blend 9, mean 1, centring 1, three
+    products 6, index arithmetic not counted: about 20 with the sums'
+    butterflies, for two patches) over the fp32 peak.  The bound is the
+    larger."""
+    nbytes = 2 * H * W * 4 + N * (3 * 8 + 3) + N * 5
+    flops = N * 2 * patch * patch * 20
+    return nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FP32_S * 1e3
+
+
+def phase_gate(card: str, img0: np.ndarray, img1: np.ndarray) -> dict:
+    """The fused acceptance gate against its plain version on the rendered
+    frame pair: at the main path's shape on the results of a real forward
+    and backward LK pass, then at every other patch size and on the
+    coarsest level."""
+    import torch
+    import torch.nn.functional as F
+    from mono_lidar_depth_tpu_torch.eval.kitti_eval import _dev_img
+    from mono_lidar_depth_tpu_torch.tracker import klt
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+    N = 2048
+    pyr0 = klt.build_pyramid(_dev_img(torch.from_numpy(img0).to(dev)),
+                             LEVELS)
+    pyr1 = klt.build_pyramid(_dev_img(torch.from_numpy(img1).to(dev)),
+                             LEVELS)
+
+    def lanes_of(lvl, patch, n_tracked=1400):
+        return tracked_gate_lanes(rng, pyr0[lvl:], pyr1[lvl:], N, patch,
+                                  n_tracked)
+
+    prev, nxt = pyr0[0], pyr1[0]
+    H, W = prev.shape
+    lanes = lanes_of(0, PATCH)
+    worst = gate_compare(prev, nxt, lanes, PATCH)
+
+    def kernel():
+        return klt._track_gate_cuda(prev, nxt, *lanes, PATCH, MIN_NCC,
+                                    FB_THRESHOLD)
+
+    def plain():
+        return klt._track_gate_reference(prev, nxt, *lanes, PATCH, MIN_NCC,
+                                         FB_THRESHOLD)
+
+    # Library yardstick: the sampling alone, one grid_sample per patch set
+    # (N x 81 taps each) on grids made outside the timed call; no
+    # correlation, no gate.  Never called by the port.
+    r = (PATCH - 1) // 2
+    off = torch.arange(-r, r + 1, device=dev, dtype=torch.float32)
+
+    def grid_of(centres):
+        centres = torch.nan_to_num(centres, nan=0.0, posinf=1e6, neginf=-1e6)
+        px = centres[:, None, None, 0] + off[None, None, :]
+        py = centres[:, None, None, 1] + off[None, :, None]
+        return torch.stack(
+            [(2 * px / (W - 1) - 1).expand(N, PATCH, PATCH),
+             (2 * py / (H - 1) - 1).expand(N, PATCH, PATCH)],
+            dim=-1).reshape(1, N, PATCH * PATCH, 2)
+
+    grid0, grid1 = grid_of(lanes[0]), grid_of(lanes[1])
+
+    def library():
+        return (F.grid_sample(prev[None, None], grid0, mode="bilinear",
+                              padding_mode="border", align_corners=True),
+                F.grid_sample(nxt[None, None], grid1, mode="bilinear",
+                              padding_mode="border", align_corners=True))
+
+    # grid_sample clamps the sample point and the plain version each tap,
+    # which is the same inside the image: hold the yardstick to the plain
+    # patches there, so that it times the same sampling.
+    inside = ((lanes[0] > r + 1).all(1) & (lanes[0][:, 0] < W - r - 2)
+              & (lanes[0][:, 1] < H - r - 2))
+    lib_err = float((library()[0][0, 0][inside]
+                     - klt._bilinear_patches(prev, lanes[0], PATCH)[inside]
+                     ).abs().max())
+    check(lib_err <= 1e-3, f"grid_sample patches differ from the plain "
+                           f"patches by {lib_err:.2e}")
+
+    ms = device_ms(kernel, "zncc_gate_kernel")
+    # One block of 4 lanes: a launch and one chain of dependent rounds,
+    # which is what the full launch's time is mostly made of.
+    few = [x[:4].contiguous() for x in lanes]
+    ms_few = device_ms(lambda: klt._track_gate_cuda(
+        prev, nxt, *few, PATCH, MIN_NCC, FB_THRESHOLD), "zncc_gate_kernel")
+    plain_ms = device_ms(plain, reps=10)
+    lib_ms = device_ms(library)
+    wrap_ms, wrap_plain_ms = time_ms(kernel), time_ms(plain, reps=10)
+    by_bytes, by_ops = gate_bound_ms(H, W, N, PATCH)
+    bound = max(by_bytes, by_ops)
+    by = "bytes" if by_bytes >= by_ops else "operations"
+    log(f"phase 3 kernels: zncc_gate per track_frame ({H}x{W}, N={N}, patch "
+        f"{PATCH}), device time: kernel {ms:.4f} ms in one launch (on 4 lanes alone "
+        f"{ms_few:.4f} ms), plain "
+        f"version (2 edge pads, 2 crops, blends, correlation, gate) "
+        f"{plain_ms:.4f} ms, bound {bound:.5f} ms by {by} (bytes "
+        f"{by_bytes:.5f}, operations {by_ops:.5f}), two grid_sample calls "
+        f"for the taps alone {lib_ms:.4f} ms (within {lib_err:.1e} of the "
+        f"plain patches inside the image); wrapper time (CUDA events, "
+        f"back-to-back calls) kernel {wrap_ms:.4f} ms, plain "
+        f"{wrap_plain_ms:.4f} ms [{card}]")
+
+    # The kernel's other instantiations at the finest level, and the main
+    # patch on the coarsest (correctness only).
+    for patch in OTHER_PATCHES:
+        worst = max(worst, gate_compare(prev, nxt, lanes_of(0, patch), patch))
+    small = LEVELS - 1
+    worst = max(worst, gate_compare(pyr0[small], pyr1[small],
+                                    lanes_of(small, PATCH, 600), PATCH))
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+
 # --------------------------------------------------------------- phase 4
 
 class Scene(NamedTuple):
@@ -778,13 +1054,14 @@ def prime(sc: Scene):
         sc.valid0, sc.gen))
 
 
-def phase_main(card: str) -> int:
+def phase_main(card: str) -> dict:
     import warnings
 
     import torch
     import mono_lidar_depth_tpu_torch as T
     from mono_lidar_depth_tpu_torch.core import neighbors, windows
     from mono_lidar_depth_tpu_torch.obs.stats import success_rates
+    from mono_lidar_depth_tpu_torch.tracker import klt
     from mono_lidar_depth_tpu_torch.tracks.table import match_tracks
 
     sc = bench_scene()
@@ -795,7 +1072,7 @@ def phase_main(card: str) -> int:
         f"table {M}x12, {FRAMES} frames")
 
     neighbors.launches = 0  # count the main path's launches only
-    windows.launches = 0
+    windows.launches = klt.launches = klt.gate_launches = 0
     t0 = time.perf_counter()
     state = prime(sc)
     step_ms, outs, outcomes, counters = [], [], [], []
@@ -817,11 +1094,12 @@ def phase_main(card: str) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, crops = neighbors.launches, windows.launches
+    tracker = klt.launches + klt.gate_launches
     step_ms = [a.elapsed_time(b) for a, b in step_ms]
 
-    check(launches == FRAMES and crops == 0,
-          f"{launches} gather_neighbors and {crops} slice_windows launches "
-          f"in {FRAMES} steps, want {FRAMES} and 0")
+    check(launches == FRAMES and crops == 0 and tracker == 0,
+          f"{launches} gather_neighbors, {crops} slice_windows and {tracker} "
+          f"tracker-kernel launches in {FRAMES} steps, want {FRAMES}, 0, 0")
     leaves = list(tensors_of((state, outs, counters)))
     check(all(x.is_cuda for x in leaves), "a main-path tensor left the GPU")
     for k, (R_cw, t_cw, diag) in enumerate(outs):
@@ -866,8 +1144,9 @@ def phase_main(card: str) -> int:
     log("phase 4 main: outcome counters " + json.dumps(
         [int(c) for c in total]))
 
-    # No host sync inside the fused depth pair's neighbor gather, and the
-    # syncs of a whole step named by where they happen.
+    # No host sync inside the fused depth pair's neighbor gather, and
+    # exactly one in a whole step: where vo/pipeline.py reads its two
+    # branch predicates.
     last, tr = sc.inputs[-1], state.tracklets
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
@@ -895,9 +1174,14 @@ def phase_main(card: str) -> int:
     check(not syncs(in_gather),
           f"the neighbor gather synchronized with the host: "
           f"{syncs(in_gather)[:3]}")
+    step_syncs = syncs(in_step)
+    check(len(step_syncs) == 1 and step_syncs[0].startswith("vo/pipeline.py:"),
+          f"one odometry step synchronized with the host at {step_syncs}; "
+          f"want exactly one place, in vo/pipeline.py")
     log(f"phase 4 main: no host sync inside the neighbor gather (sync debug "
-        f"mode); host syncs of one odometry step: {syncs(in_step)}")
-    return launches
+        f"mode); one odometry step synchronizes with the host once, at "
+        f"{step_syncs[0]}")
+    return {"gather_neighbors": launches, "slice_windows": crops}
 
 
 # --------------------------------------------------------------- phase 5
@@ -1060,10 +1344,18 @@ def phase_images(card: str, seq, render_s: float) -> dict:
     prime: list = []
     frames = T.frame_inputs(seq, cfg, prime=prime, pyramid_levels=LEVELS,
                             device=dev, rng=gen)
-    def launched():
-        return (klt.launches, windows.launches, neighbors.launches)
+    kernel_names = ("lk_level", "zncc_gate", "slice_windows",
+                    "gather_neighbors")
 
-    klt.launches = windows.launches = neighbors.launches = 0
+    def launched():
+        return (klt.launches, klt.gate_launches, windows.launches,
+                neighbors.launches)
+
+    def reset_counts():
+        klt.launches = klt.gate_launches = 0
+        windows.launches = neighbors.launches = 0
+
+    reset_counts()
     counts, events, inputs, outs = [], [], [], []
     t0 = time.perf_counter()
     for k in range(steps):
@@ -1088,16 +1380,16 @@ def phase_images(card: str, seq, render_s: float) -> dict:
     total = launched()
     check(next(frames, None) is None, "frame_inputs yielded too many frames")
 
-    # counts: cumulative (lk_level, slice_windows, gather_neighbors) after
-    # track_frame and after the step
+    # counts: cumulative launches of `kernel_names` after track_frame and
+    # after the step
     c = np.asarray(counts)
-    before = np.concatenate([[[0, 0, 0]], c[:-1, 3:]])
-    in_track, in_step = c[:, :3] - before, c[:, 3:] - c[:, :3]
-    check(bool((in_track == [2 * LEVELS, 2, 0]).all()
-               and (in_step == [0, 0, 1]).all()),
-          f"launches (lk_level, slice_windows, gather_neighbors) per frame: "
-          f"track_frame {in_track.tolist()}, want [{2 * LEVELS}, 2, 0]; "
-          f"odometry_step {in_step.tolist()}, want [0, 0, 1]")
+    before = np.concatenate([[[0, 0, 0, 0]], c[:-1, 4:]])
+    in_track, in_step = c[:, :4] - before, c[:, 4:] - c[:, :4]
+    check(bool((in_track == [2 * LEVELS, 1, 0, 0]).all()
+               and (in_step == [0, 0, 0, 1]).all()),
+          f"launches {kernel_names} per frame: track_frame "
+          f"{in_track.tolist()}, want [{2 * LEVELS}, 1, 0, 0]; odometry_step "
+          f"{in_step.tolist()}, want [0, 0, 0, 1]")
     leaves = list(tensors_of((state, outs, inputs)))
     check(all(x.is_cuda for x in leaves), "an image-path tensor left the GPU")
 
@@ -1133,8 +1425,9 @@ def phase_images(card: str, seq, render_s: float) -> dict:
     ms_in = [e[0].elapsed_time(e[1]) for e in events]
     ms_step = [e[1].elapsed_time(e[2]) for e in events]
     log(f"phase 6 images: {steps} frames ok: per frame {2 * LEVELS} lk_level "
-        f"+ 2 slice_windows launches in track_frame and 1 gather_neighbors "
-        f"in odometry_step (totals {list(total)}), all tensors on "
+        f"+ 1 zncc_gate + 0 slice_windows launches in track_frame and 1 "
+        f"gather_neighbors in odometry_step (totals "
+        f"{dict(zip(kernel_names, total))}), all tensors on "
         f"{leaves[0].device}; emitted share "
         f"of lanes {[round(x, 4) for x in emit]} > floor {EMIT_FLOOR} from "
         f"the second frame on; ids kept frame to frame {kept}; diag "
@@ -1154,14 +1447,14 @@ def phase_images(card: str, seq, render_s: float) -> dict:
         f"{wall:.3f} s [{card}]")
 
     # ---- the same frames through the sequence entry point
-    klt.launches = windows.launches = neighbors.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = T.eval_vo_sequence(seq, cfg, ocfg, max_tracks=N, max_length=12,
                              verbose=False, device=dev, seed=SEED)
     eval_s = time.perf_counter() - t0
     check(launched() == total,
-          f"eval_vo_sequence launched {launched()} kernels (lk_level, "
-          f"slice_windows, gather_neighbors), the frame loop {total}")
+          f"eval_vo_sequence launched {launched()} kernels {kernel_names}, "
+          f"the frame loop {total}")
     check(res["frames"] == steps and res["frame_ids"] == list(
         range(1, len(seq))), f"eval_vo_sequence frames {res['frame_ids']}")
     # Same seed and the same order of RANSAC draws as the loop above; the
@@ -1176,9 +1469,10 @@ def phase_images(card: str, seq, render_s: float) -> dict:
           f"eval_vo_sequence RPE {res['rpe_trans_rmse']:.4f} m, the frame "
           f"loop's {full['trans_rmse']:.4f} m")
     log(f"phase 6 images: eval_vo_sequence over the same frames in "
-        f"{eval_s:.3f} s: {klt.launches} lk_level + {windows.launches} "
-        f"slice_windows + {neighbors.launches} gather_neighbors launches as "
-        f"the frame loop; poses against the "
+        f"{eval_s:.3f} s: {klt.launches} lk_level + {klt.gate_launches} "
+        f"zncc_gate + {windows.launches} slice_windows + "
+        f"{neighbors.launches} gather_neighbors launches as the frame loop; "
+        f"poses against the "
         f"loop's max |dR| {dR:.2e}, max |dt| {dt:.2e} m; over all {steps} "
         f"frames ATE {res['ate_rmse']:.4f} m, RPE trans "
         f"{res['rpe_trans_rmse']:.4f} m (loop {full['trans_rmse']:.4f} m) "
@@ -1265,8 +1559,7 @@ def phase_images(card: str, seq, render_s: float) -> dict:
           f"card/CPU tracked positions differ by {max(uv_err):.2e} px")
     check(dR <= 1e-3 and dt <= 5e-3,
           f"card/CPU image-path poses differ: |dR| {dR:.2e}, |dt| {dt:.2e}")
-    return dict(zip(("lk_level", "slice_windows", "gather_neighbors"),
-                    total))
+    return dict(zip(kernel_names, total))
 
 
 def main() -> int:
@@ -1289,7 +1582,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build()
     info = dict(kernels.build_info)
-    for lib in ("windows", "lk_level", "gather_neighbors"):
+    for lib in ("windows", "lk_level", "gather_neighbors", "zncc_gate"):
         kernels.library(lib)
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if "registers" in ln or "spill" in ln]
@@ -1307,23 +1600,31 @@ def main() -> int:
     kern = phase_kernels(card)
     lk = phase_lk(card, seq.image(0), seq.image(1))
     gather = phase_gather(card)
+    gate = phase_gate(card, seq.image(0), seq.image(1))
     launches = phase_main(card)
     phase_agree(card)
     img_launches = phase_images(card, seq, render_s)
 
     # Per kernel: `launches` of its main paths' runs (phase 4's
-    # feature-fed path plus phase 6's image-fed path; the window crop and
-    # the LK level run on the image-fed path only); ms, plain_ms, bound_ms:
-    # device time of the kernel's launches in one frame (slice_windows:
-    # the 2 ZNCC crops of one track_frame; lk_level: the 2 passes x 4
-    # levels of one track_frame; gather_neighbors: the one launch of one
-    # odometry step).  library_ms: for slice_windows the indexing gather
-    # of the same crops on ready indices, for lk_level grid_sample doing
-    # the iterations' patch sampling alone, for gather_neighbors the four
-    # indexing gathers of its crops alone (no decode).
+    # feature-fed path plus phase 6's image-fed path; the LK level and the
+    # gate run on the image-fed path only; the window crop is launched by
+    # neither any more, so its count is 0, and phase 3 goes on holding it
+    # bit-exact and timing it through its public entry point); ms,
+    # plain_ms, bound_ms: device time of the kernel's launches in one
+    # frame (slice_windows: the 2 ZNCC crops that one track_frame made
+    # until the gate took them over; lk_level: the 2 passes x 4 levels of
+    # one track_frame; gather_neighbors: the one launch of one odometry
+    # step; zncc_gate: the one launch of one track_frame).  library_ms:
+    # for slice_windows the indexing gather of the same crops on ready
+    # indices, for lk_level grid_sample doing the iterations' patch
+    # sampling alone, for gather_neighbors the four indexing gathers of
+    # its crops alone (no decode), for zncc_gate two grid_sample calls
+    # doing its patch sampling alone.
     log(json.dumps({"kernels": [
         {"name": "slice_windows", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES, "launches": img_launches["slice_windows"],
+         "replaces": REPLACES,
+         "launches": (launches["slice_windows"]
+                      + img_launches["slice_windows"]),
          "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
          "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
          "bound_by": "bytes", "library_ms": kern["library_ms"]},
@@ -1334,11 +1635,17 @@ def main() -> int:
          "bound_by": lk["bound_by"], "library_ms": lk["library_ms"]},
         {"name": "gather_neighbors", "route": "cuda", "source": GATHER_SOURCE,
          "replaces": REPLACES,
-         "launches": launches + img_launches["gather_neighbors"],
+         "launches": (launches["gather_neighbors"]
+                      + img_launches["gather_neighbors"]),
          "max_abs_err": gather["max_abs_err"], "ms": gather["ms"],
          "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
          "bound_by": gather["bound_by"],
-         "library_ms": gather["library_ms"]}]}))
+         "library_ms": gather["library_ms"]},
+        {"name": "zncc_gate", "route": "cuda", "source": GATE_SOURCE,
+         "replaces": REPLACES, "launches": img_launches["zncc_gate"],
+         "max_abs_err": gate["max_abs_err"], "ms": gate["ms"],
+         "plain_ms": gate["plain_ms"], "bound_ms": gate["bound_ms"],
+         "bound_by": gate["bound_by"], "library_ms": gate["library_ms"]}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

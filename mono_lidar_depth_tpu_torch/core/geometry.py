@@ -169,6 +169,13 @@ def sym3x3_eigenvalues(A: torch.Tensor) -> torch.Tensor:
     return torch.where(p[..., None] == 0, q[..., None], evals)
 
 
+def _unit_axis(like: torch.Tensor, axis: int) -> torch.Tensor:
+    """The unit vector [3] of `axis` in `like`'s dtype, made on its device:
+    a tensor built from a Python list, and a scalar assigned to an
+    element, would both be copied from the host."""
+    return (torch.arange(3, device=like.device) == axis).to(like.dtype)
+
+
 def _eigenvector_for(A: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     """Unit eigenvector for eigenvalue lam via the largest cross product
     of rows of (A - lam I); e_z for fully degenerate input."""
@@ -181,16 +188,14 @@ def _eigenvector_for(A: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     idx = best[..., None, None].expand(*best.shape, 1, 3)
     v = torch.gather(cands, -2, idx)[..., 0, :]
     n = norm3(v)[..., None]
-    fallback = torch.tensor([0.0, 0.0, 1.0], dtype=A.dtype,
-                            device=A.device).expand_as(v)
+    fallback = _unit_axis(v, 2).expand_as(v)
     return torch.where(n > 1e-20, v / _nonzero(n), fallback)
 
 
 def _any_orthogonal(v: torch.Tensor) -> torch.Tensor:
     """A unit vector orthogonal to unit v."""
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=v.dtype, device=v.device)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=v.dtype, device=v.device)
-    base = torch.where(torch.abs(v[..., 0:1]) < 0.9, ex, ey)
+    base = torch.where(torch.abs(v[..., 0:1]) < 0.9, _unit_axis(v, 0),
+                       _unit_axis(v, 1))
     w = cross3(v, base)
     return w / norm3(w)[..., None]
 

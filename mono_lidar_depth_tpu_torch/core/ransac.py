@@ -112,9 +112,12 @@ def fit_ground_plane_ransac(
     res = torch.abs(sub_pts @ n_unit.T + d[None, :])  # [S_sub, S]
     inl = (res < distance_threshold) & sub_ok[:, None]
     counts = torch.where(hyp_ok, inl.sum(0), -1)
-    best = torch.argmax(counts)
-    best_coeffs = torch.cat([n_unit[best], d[best][None]])
-    best_inl_sub = inl[:, best]
+    # `index_select` on a 1-element index: indexing with the 0-dim `best`
+    # itself would read it back to the host.
+    best = torch.argmax(counts)[None]
+    best_coeffs = torch.cat([n_unit.index_select(0, best)[0],
+                             d.index_select(0, best)])
+    best_inl_sub = inl.index_select(1, best)[:, 0]
 
     # `.index_put_` below has duplicate indices (the subsample is drawn
     # with replacement).  That is safe: the value written for an index
@@ -138,6 +141,6 @@ def fit_ground_plane_ransac(
         coeffs = best_coeffs
         inlier_mask.index_put_((sub_idx,), best_inl_sub)
 
-    ok = (n_usable >= 3) & (counts[best] > 0)
+    ok = (n_usable >= 3) & (counts.index_select(0, best)[0] > 0)
     coeffs = coeffs * torch.where(coeffs[2] < 0, -1.0, 1.0)  # normal z >= 0
     return GroundPlane(coeffs=coeffs, inlier_mask=inlier_mask & valid, ok=ok)

@@ -51,6 +51,8 @@ _ENTRY_POINTS = {
     "gather_neighbors": {"mld_gather_neighbors": [
         _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _cf, _cf, _cf,
         ctypes.POINTER(GatherScale), _ci, _vp]},
+    "zncc_gate": {"mld_zncc_gate": [_vp] * 10 + [_ci] * 4 + [_cf] * 7
+                  + [_vp]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -127,14 +129,19 @@ def library(name: str) -> ctypes.CDLL:
     first call)."""
     if name not in _libs:
         build()
-        lib = ctypes.CDLL(str(library_path(name)))
-        for fn, argtypes in _ENTRY_POINTS[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = _ci
-        lib.mld_error_string.argtypes = [_ci]
-        lib.mld_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
+        _libs[name] = load(name, library_path(name))
     return _libs[name]
+
+
+def load(name: str, path: Path) -> ctypes.CDLL:
+    """A library built from csrc/<name>.cu, with its entry points typed."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in _ENTRY_POINTS[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _ci
+    lib.mld_error_string.argtypes = [_ci]
+    lib.mld_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -29,8 +29,21 @@ One pyramid level (`_lk_level`) has two forms:
   * `_lk_level` dispatches: a CPU tensor takes the reference; a CUDA
     tensor launches the kernel or raises.  There is no fallback.
 
-`launches` counts the level kernel's launches.  The ZNCC patches
-(`_bilinear_patches`) still go through `core.windows.slice_windows`.
+The acceptance gate at the end of `track_features` (`_track_gate`) has
+the same three forms:
+
+  * `_track_gate_reference`: plain PyTorch — forward-backward error,
+    in-image test, two `_bilinear_patches` (edge pad, window indexing,
+    `_lerp2`), `_zncc`, the conjunction of the flags.  The CPU runs
+    it, and the kernel is held against it.
+  * `_track_gate_cuda`: the hand-written Hopper kernel
+    (csrc/zncc_gate.cu): all of that for every lane in one launch on the
+    unpadded images; it writes `ok` and `ncc` and nothing else.  It is
+    what the window-extraction TPU kernel becomes for the ZNCC caller.
+  * `_track_gate` dispatches as `_lk_level` does.
+
+`launches` counts the level kernel's launches, `gate_launches` the gate
+kernel's.
 """
 
 from __future__ import annotations
@@ -40,10 +53,11 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from ..core.windows import slice_windows, slice_windows_reference
+from ..core.windows import slice_windows_reference
 
 launches = 0  # _lk_level_cuda kernel launches since the last reset
-MAX_PATCH = 15  # kMaxPatch of csrc/lk_level.cu
+gate_launches = 0  # _track_gate_cuda kernel launches since the last reset
+MAX_PATCH = 15  # kMaxPatch of csrc/lk_level.cu and csrc/zncc_gate.cu
 
 
 def build_pyramid(img: torch.Tensor, levels: int) -> list[torch.Tensor]:
@@ -91,8 +105,9 @@ def _edge_pad(img: torch.Tensor, m: int) -> torch.Tensor:
 
 def _windows(img: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
              K: int) -> torch.Tensor:
-    """[N, K, K] integer-start windows of a single-plane image."""
-    return slice_windows(img[None], sy, sx, K, K)[:, 0]
+    """[N, K, K] integer-start windows of a single-plane image, by plain
+    indexing: only the plain versions of the level and the gate crop."""
+    return slice_windows_reference(img[None], sy, sx, K, K)[:, 0]
 
 
 def _lerp2(win: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor
@@ -136,12 +151,9 @@ def _lk_level_reference(prev_img, next_img, uv_prev, uv_guess, patch, iters,
     slack = r + 1  # see _split_frac — per-tap-clamp border semantics
     m = r + 2 + slack
 
-    def windows(pad, sy, sx, K):
-        return slice_windows_reference(pad[None], sy, sx, K, K)[:, 0]
-
     ix, iy, fx, fy = _split_frac(uv_prev, H, W, slack)
     prev_pad = _edge_pad(prev_img, m)
-    win = windows(prev_pad, iy - r - 1 + m, ix - r - 1 + m, patch + 3)
+    win = _windows(prev_pad, iy - r - 1 + m, ix - r - 1 + m, patch + 3)
     B = _lerp2(win, fx, fy)  # [N, patch+2, patch+2]
     template = B[:, 1:-1, 1:-1].reshape(N, -1)
     gx = ((B[:, 1:-1, 2:] - B[:, 1:-1, :-2]) * 0.5).reshape(N, -1)
@@ -159,7 +171,7 @@ def _lk_level_reference(prev_img, next_img, uv_prev, uv_guess, patch, iters,
     uv = uv_guess
     for _ in range(iters):
         jx, jy, hx, hy = _split_frac(uv, H, W, slack)
-        wn = windows(next_pad, jy - r + m, jx - r + m, patch + 1)
+        wn = _windows(next_pad, jy - r + m, jx - r + m, patch + 1)
         cur = _lerp2(wn, hx, hy).reshape(N, -1)
         err = cur - template  # [N, K]
         bx = torch.sum(err * gx, dim=1)
@@ -266,17 +278,98 @@ def track_features(
     # backward pass: the expected landing point is the forward start
     uv_b, ok_b = _pyramidal(next_pyr, prev_pyr, uv_f, patch, iters, min_det,
                             guess=uv)
+    ok, _ = _track_gate(prev_pyr[0], next_pyr[0], uv, uv_f, uv_b, valid,
+                        ok_f, ok_b, patch, min_ncc, fb_threshold)
+    return uv_f, ok
+
+
+def _track_gate_reference(prev_img, next_img, uv, uv_f, uv_b, valid, ok_f,
+                          ok_b, patch, min_ncc, fb_threshold):
+    """The acceptance gate of `track_features` in plain PyTorch:
+    (ok [N] bool, ncc [N] f32).  A lane passes if it was valid, both LK
+    passes were well conditioned, the backward pass returned within
+    `fb_threshold` px of the start, the tracked position lies inside the
+    image and the template and the tracked patch correlate above
+    `min_ncc`.  A NaN position fails every comparison it enters and gives
+    a NaN `ncc`."""
     d = uv_b - uv
     fb_err = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
-    H, W = next_pyr[0].shape
+    H, W = next_img.shape
     in_img = ((uv_f[:, 0] > 1) & (uv_f[:, 0] < W - 2)
               & (uv_f[:, 1] > 1) & (uv_f[:, 1] < H - 2))
-    t = _bilinear_patches(prev_pyr[0], uv, patch)
-    c = _bilinear_patches(next_pyr[0], uv_f, patch)
+    t = _bilinear_patches(prev_img, uv, patch)
+    c = _bilinear_patches(next_img, uv_f, patch)
     ncc = _zncc(t, c)
     ok = (valid & ok_f & ok_b & (fb_err < fb_threshold) & in_img
           & (ncc > min_ncc))
-    return uv_f, ok
+    return ok, ncc
+
+
+def _track_gate_cuda(prev_img, next_img, uv, uv_f, uv_b, valid, ok_f, ok_b,
+                     patch, min_ncc, fb_threshold):
+    """The acceptance gate by the fused CUDA kernel: (ok [N], ncc [N]).
+
+    Takes contiguous f32 [H, W] images of one shape, contiguous f32
+    [N, 2] positions and contiguous bool [N] flags on one CUDA device, an
+    odd `patch` of at most MAX_PATCH; raises on anything else."""
+    global gate_launches
+    dev = prev_img.device
+    if dev.type != "cuda":
+        raise ValueError(f"_track_gate_cuda needs CUDA tensors, got {dev}")
+    if patch % 2 != 1 or not 1 <= patch <= MAX_PATCH:
+        raise ValueError(f"patch must be odd and at most {MAX_PATCH}, "
+                         f"got {patch}")
+    if prev_img.dim() != 2 or next_img.shape != prev_img.shape:
+        raise ValueError(f"images must be [H, W] of one shape, got "
+                         f"{tuple(prev_img.shape)}, {tuple(next_img.shape)}")
+    N = uv.shape[0]
+    f32, flag = torch.float32, torch.bool
+    for name, t, dtype, shape in (
+            ("prev_img", prev_img, f32, prev_img.shape),
+            ("next_img", next_img, f32, prev_img.shape),
+            ("uv", uv, f32, (N, 2)), ("uv_f", uv_f, f32, (N, 2)),
+            ("uv_b", uv_b, f32, (N, 2)), ("valid", valid, flag, (N,)),
+            ("ok_f", ok_f, flag, (N,)), ("ok_b", ok_b, flag, (N,))):
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be {list(shape)}, got "
+                             f"{list(t.shape)}")
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    H, W = prev_img.shape
+    lo, hi_x, hi_y = _clamp_bounds(H, W, (patch - 1) // 2 + 1)
+    ok = torch.empty((N,), dtype=torch.bool, device=dev)
+    ncc = torch.empty((N,), dtype=torch.float32, device=dev)
+    lib = kernels.library("zncc_gate")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.mld_zncc_gate(
+            prev_img.data_ptr(), next_img.data_ptr(), uv.data_ptr(),
+            uv_f.data_ptr(), uv_b.data_ptr(), valid.data_ptr(),
+            ok_f.data_ptr(), ok_b.data_ptr(), ok.data_ptr(), ncc.data_ptr(),
+            H, W, N, patch, min_ncc, fb_threshold, lo, hi_x, hi_y,
+            float(W - 2), float(H - 2), stream)
+        kernels.check(lib, code, "zncc_gate kernel launch")
+        gate_launches += 1
+    return ok, ncc
+
+
+def _track_gate(prev_img, next_img, uv, uv_f, uv_b, valid, ok_f, ok_b, patch,
+                min_ncc, fb_threshold):
+    """The acceptance gate on the images' device: the fused CUDA kernel
+    for CUDA tensors, the plain reference for CPU tensors."""
+    if prev_img.device.type == "cuda":
+        return _track_gate_cuda(
+            prev_img, next_img, uv.contiguous(), uv_f.contiguous(),
+            uv_b.contiguous(), valid.contiguous(), ok_f.contiguous(),
+            ok_b.contiguous(), patch, min_ncc, fb_threshold)
+    if prev_img.device.type == "cpu":
+        return _track_gate_reference(prev_img, next_img, uv, uv_f, uv_b,
+                                     valid, ok_f, ok_b, patch, min_ncc,
+                                     fb_threshold)
+    raise ValueError(f"no track gate for device {prev_img.device}")
 
 
 def _zncc(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-8

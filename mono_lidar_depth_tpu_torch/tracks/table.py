@@ -140,7 +140,9 @@ def update_tracks(
     depth = _pad_row(depth)
     depth[seed_tgt, 0] = depths_prev
     length = _pad_row(length)
-    length[seed_tgt] = 1
+    # not `length[seed_tgt] = 1`: a scalar assigned through an index
+    # tensor waits for the card
+    length.index_fill_(0, seed_tgt, 1)
     track_id, uv, depth, length = (track_id[:T], uv[:T], depth[:T],
                                    length[:T])
 

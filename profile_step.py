@@ -24,8 +24,9 @@ Then the image path: 12 frames of the synthetic sequence at the KITTI
 size (chip_smoke.py's phase 6 settings) are rendered and moved to the
 card, `init_tracker` runs on the first, and `track_frame` on the others
 with the same plan (4 warm, 4 timed alone, 3 profiled), its stages being
-`build_pyramid`, `track_features` (8 `lk_level` launches and the ZNCC
-patches), `detect_features`, and the lane bookkeeping that remains.
+`build_pyramid`, `track_features` (8 `lk_level` launches and the one
+`zncc_gate` launch), `detect_features`, and the lane bookkeeping that
+remains.
 """
 
 from __future__ import annotations

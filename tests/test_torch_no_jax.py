@@ -31,7 +31,7 @@ REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "mono_lidar_depth_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "mono_lidar_depth_tpu")
 LAZY_ONLY = ("PIL", "yaml")  # may be imported inside a function only
-SCRIPTS = ["chip_smoke.py", "profile_step.py"]
+SCRIPTS = ["chip_smoke.py", "profile_step.py", "gate_variants.py"]
 
 
 def _port_modules():
@@ -43,7 +43,7 @@ def test_port_imports_no_jax():
     code = (
         "import sys, importlib\n"
         f"for m in {_port_modules()!r} + ['mono_lidar_depth_tpu_torch', "
-        "'chip_smoke', 'profile_step']:\n"
+        "'chip_smoke', 'profile_step', 'gate_variants']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + LAZY_ONLY!r})\n"
@@ -105,6 +105,45 @@ def test_kernel_source_is_bound(source):
         assert len(found[name].split(",")) == len(argtypes), name
     assert '#include "common.cuh"' in text
     assert "jax" not in re.sub(r"//.*", "", text).lower()
+
+
+def test_gate_kernel_is_bound_and_shares_the_lk_helpers():
+    """The fused gate is the fourth library; it and the LK level take
+    their blend, warp sum and centre clamp from one header, which defines
+    them once."""
+    from mono_lidar_depth_tpu_torch import kernels
+
+    assert set(kernels._ENTRY_POINTS) == {"windows", "lk_level",
+                                          "gather_neighbors", "zncc_gate"}
+    assert len(kernels._ENTRY_POINTS["zncc_gate"]["mld_zncc_gate"]) == 22
+    header = (PKG / "csrc" / "lk_common.cuh").read_text()
+    for source in ("lk_level.cu", "zncc_gate.cu"):
+        text = (PKG / "csrc" / source).read_text()
+        assert '#include "lk_common.cuh"' in text
+        for helper in ("lerp2", "warp_sum", "split_frac", "clampi"):
+            assert f" {helper}(" in header
+            assert not re.search(rf"__device__[^;{{]*\b{helper}\(", text)
+
+
+@pytest.mark.parametrize("edited", ["lk_common.cuh", "common.cuh",
+                                    "zncc_gate.cu"])
+def test_build_hash_covers_headers(tmp_path, monkeypatch, edited):
+    """An edit to a header or a source moves the build directory, so no
+    library built from the old text is loaded."""
+    import shutil
+
+    from mono_lidar_depth_tpu_torch import kernels
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(PKG / "csrc", csrc)
+    monkeypatch.setattr(kernels, "_CSRC", csrc)
+    monkeypatch.setattr(kernels, "BUILD_ROOT", tmp_path / "_build")
+    before = kernels.build_dir()
+    assert before == kernels.build_dir() and before.parent == tmp_path / "_build"
+    with open(csrc / edited, "a") as f:
+        f.write("// edited\n")
+    assert kernels.build_dir() != before
+    assert kernels.library_path("zncc_gate").parent == kernels.build_dir()
 
 
 def test_gather_scale_layout_matches_the_source():
