@@ -4,8 +4,9 @@ core/depth_estimator.py).
 Every branch of the reference's per-feature state machine runs for all
 features as masked lanes, and (code, depth) is a select cascade with
 the reference's precedence; see the JAX module for the stage list and
-the documented deviations.  Region growing
-(`do_use_depth_segmentation=True`) is not ported yet and raises.
+the documented deviations.  With region growing
+(`do_use_depth_segmentation=True`) the gather also returns the index
+plane, from which the cascade takes each feature's seed point.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from ..device import Device, default_device
 from ..obs.stats import count_codes
 from .geometry import (SE3, PinholeCamera, dot3, plane_from_points,
                        point_plane_distance, ray_plane_intersection)
-from .histogram import filter_points_min_dist_blob
+from .histogram import filter_points_min_dist_blob, nearest_point
 from .neighbors import NeighborSet, gather_neighbors_frames
 from .planefit import (check_planar, check_xz_flatness, first_three_points,
                        least_squares_plane, max_spanning_triangle,
@@ -27,10 +28,7 @@ from .planefit import (check_planar, check_xz_flatness, first_three_points,
 from .projection import FrameCloud, build_frame_cloud
 from .ransac import GroundPlane
 from .result_types import DepthResultType as R
-
-_NO_ROW_SEGMENTATION = (
-    "do_use_depth_segmentation=True (row segmentation / region growing) is "
-    "not ported yet; it comes with core/row_segmentation.py")
+from .row_segmentation import grow_regions, segment_rows
 
 
 class DepthDebug(NamedTuple):
@@ -71,11 +69,6 @@ def _all_zero_depths(features_valid: torch.Tensor) -> DepthEstimate:
         codes=codes, counters=count_codes(codes, features_valid))
 
 
-def _check_supported(cfg: DepthEstimatorConfig) -> None:
-    if cfg.do_use_depth_segmentation:
-        raise NotImplementedError(_NO_ROW_SEGMENTATION)
-
-
 def estimate_depths(
     cfg: DepthEstimatorConfig,
     camera: PinholeCamera,
@@ -87,7 +80,6 @@ def estimate_depths(
     ground_plane: Optional[GroundPlane] = None,
 ) -> DepthEstimate:
     """A metric depth for every feature [N, 2] against a lidar cloud."""
-    _check_supported(cfg)
     if ground_plane is None:
         ground_plane = no_ground_plane(cloud_lidar.shape[0],
                                        cloud_lidar.device)
@@ -127,7 +119,8 @@ def plane_to_camera(lidar_to_cam: SE3, coeffs: torch.Tensor) -> torch.Tensor:
 def _gather_two_scales(cfg, camera, frames, uvs):
     """Window gathers for both search scales (primary + road retry) over
     the features of all `frames`, joined in one lane order: one kernel
-    launch on the card."""
+    launch on the card.  Region growing needs the neighbors' raw point
+    indices, so it asks for the index plane."""
     hx = cfg.pixelarea_search_witdh * 0.5
     hy = cfg.pixelarea_search_height * 0.5
     scales = [(hx, hy, cfg.primary_window)]
@@ -135,7 +128,7 @@ def _gather_two_scales(cfg, camera, frames, uvs):
         scales.append((hx * cfg.road_search_scale_x,
                        hy * cfg.road_search_scale_y, cfg.road_window))
     nbs = gather_neighbors_frames(frames, uvs, camera, scales,
-                                  with_indices=False)
+                                  with_indices=cfg.do_use_depth_segmentation)
     return nbs[0], (nbs[1] if cfg.do_use_ransac_plane else None)
 
 
@@ -149,13 +142,13 @@ def estimate_depths_from_frame(
     ground_plane: GroundPlane,
 ) -> DepthEstimate:
     """Depths against a frame rasterized with the SAME ground plane."""
-    _check_supported(cfg)
     if cfg.set_all_depths_to_zero:
         return _all_zero_depths(features_valid)
     nb1, nb2 = _gather_two_scales(cfg, camera, [frame], [features_uv])
     return _depth_cascade(
         cfg, camera, nb1, nb2, features_uv, features_valid,
-        plane_to_camera(lidar_to_cam, ground_plane.coeffs), ground_plane.ok)
+        plane_to_camera(lidar_to_cam, ground_plane.coeffs), ground_plane.ok,
+        frame=frame)
 
 
 def estimate_depths_pair(
@@ -173,10 +166,17 @@ def estimate_depths_pair(
 ) -> tuple[DepthEstimate, DepthEstimate]:
     """Two feature sets against two frames in one fused cascade: one
     gather over both frames and both scales (one kernel launch), then
-    everything downstream once over the [Na + Nb] lanes."""
-    _check_supported(cfg)
+    everything downstream once over the [Na + Nb] lanes.  Region growing
+    is frame-local (the row segmentation of each cloud), so in that
+    configuration the two frames run as two separate passes: two
+    launches."""
     if cfg.set_all_depths_to_zero:
         return _all_zero_depths(valid_a), _all_zero_depths(valid_b)
+    if cfg.do_use_depth_segmentation:
+        return (estimate_depths_from_frame(cfg, camera, lidar_to_cam,
+                                           frame_a, uv_a, valid_a, gp_a),
+                estimate_depths_from_frame(cfg, camera, lidar_to_cam,
+                                           frame_b, uv_b, valid_b, gp_b))
 
     Na, Nb = uv_a.shape[0], uv_b.shape[0]
     nb1, nb2 = _gather_two_scales(cfg, camera, [frame_a, frame_b],
@@ -208,8 +208,10 @@ def _depth_cascade(
     features_valid: torch.Tensor,
     gp_coeffs_cam: torch.Tensor,  # [4] or [N, 4] camera-frame plane
     gp_ok: torch.Tensor,  # [] or [N]
+    frame: Optional[FrameCloud] = None,
 ) -> DepthEstimate:
-    """The per-feature select cascade given gathered neighbor windows."""
+    """The per-feature select cascade given gathered neighbor windows.
+    `frame` is only needed for the region-growing branch."""
     N = features_uv.shape[0]
     dev = features_uv.device
 
@@ -237,6 +239,51 @@ def _depth_cascade(
 
     primary_success = code_p == int(R.Success)
     depth_primary = torch.where(primary_success, depth_p, -1.0)
+
+    # ---- region growing (DepthEstimator.cpp:513-558): the seed is the
+    # minimum-depth window neighbor; no seed and a seed beyond the global
+    # maximum are hard returns; a successful grow + segment depth wins over
+    # the primary path; any other region failure falls through to it.
+    if cfg.do_use_depth_segmentation:
+        rows = segment_rows(frame, cfg.max_scan_rows)
+        seed_k, has_any = nearest_point(nb1.z, nb1.mask)
+        seed_k = seed_k.long()[:, None]
+        seed_raw = torch.gather(nb1.indices, 1, seed_k)[:, 0]
+        seed_z = torch.gather(nb1.z, 1, seed_k)[:, 0]
+        seed_in_range = seed_z <= cfg.treshold_depth_max
+        grow = grow_regions(
+            rows, seed_raw, has_any & seed_in_range, features_uv,
+            max_dist_threshold=cfg.depth_segmentation_max_treshold_gradient,
+            seed_to_seed_start=cfg.depth_segmentation_max_seedpoint_to_seedpoint_distance,
+            seed_to_seed_gradient=cfg.depth_segmentation_max_seedpoint_to_seedpoint_distance_gradient,
+            neighbor_to_seed_start=cfg.depth_segmentation_max_neighbor_to_seedpoint_distance,
+            neighbor_to_seed_gradient=cfg.depth_segmentation_max_neighbor_to_seedpoint_distance_gradient,
+            neighbor_start=cfg.depth_segmentation_max_neighbor_distance,
+            neighbor_gradient=cfg.depth_segmentation_max_neighbor_distance_gradient,
+            max_pointcount=cfg.depth_segmentation_max_pointcount,
+            window=cfg.region_grow_window)
+        safe_raw = torch.clamp(grow.raw_indices, 0,
+                               frame.points_cam.shape[0] - 1).long()
+        rg_points = torch.where(grow.mask[..., None],
+                                frame.points_cam[safe_raw], 0.0)
+        # no planarity check on the region path (DepthEstimator.cpp:551)
+        depth_rg, code_rg, _ = _segment_depth(
+            cfg, rg_points, grow.mask, ray_dir, ray_origin,
+            check_planar_enabled=False)
+        rg_success = ((grow.status == 1) & (code_rg == int(R.Success))
+                      & enough1)
+        code_p = torch.where(rg_success, int(R.SuccessRegionGrowing), code_p)
+        depth_primary = torch.where(rg_success, depth_rg, depth_primary)
+        no_seed = enough1 & ~has_any
+        too_deep = enough1 & has_any & ~seed_in_range
+        code_p = torch.where(no_seed, int(R.HistogramNoLocalMax), code_p)
+        code_p = torch.where(too_deep,
+                             int(R.TresholdDepthGlobalGreaterMax), code_p)
+        depth_primary = torch.where(no_seed | too_deep, -1.0, depth_primary)
+        # the hard returns also skip the road fallback
+        primary_success = ((code_p == int(R.Success))
+                           | (code_p == int(R.SuccessRegionGrowing))
+                           | no_seed | too_deep)
 
     if cfg.do_use_ransac_plane:
         code_f, depth_f, road_count = _road_pass(

@@ -7,8 +7,8 @@ from a `torch.Generator`; `jax.random` streams cannot be reproduced in
 PyTorch, so callers (the parity tests) may inject the subsample indices
 and the hypothesis picks instead.
 
-The semantic ground plane (`fit_ground_plane_semantic`) is not ported
-yet.
+`fit_ground_plane_semantic` takes the ground from a semantic label image
+instead: no random draws.
 """
 
 from __future__ import annotations
@@ -142,5 +142,64 @@ def fit_ground_plane_ransac(
         inlier_mask.index_put_((sub_idx,), best_inl_sub)
 
     ok = (n_usable >= 3) & (counts.index_select(0, best)[0] > 0)
-    coeffs = coeffs * torch.where(coeffs[2] < 0, -1.0, 1.0)  # normal z >= 0
-    return GroundPlane(coeffs=coeffs, inlier_mask=inlier_mask & valid, ok=ok)
+    return GroundPlane(coeffs=_orient_up(coeffs),
+                       inlier_mask=inlier_mask & valid, ok=ok)
+
+
+def _pixel_index(x: torch.Tensor, last: int) -> torch.Tensor:
+    """Truncate a pixel coordinate toward zero and clamp it to [0, last].
+
+    The cast of a huge or non-finite value differs between devices (the
+    card saturates and maps NaN to 0, the CPU gives INT_MIN); every such
+    lane is out of the image and masked by the caller, so the value is
+    first brought into a range where all casts agree."""
+    return torch.clamp(torch.nan_to_num(x, nan=0.0), 0.0,
+                       float(last)).to(torch.int64)
+
+
+def fit_ground_plane_semantic(
+    points_lidar: torch.Tensor,
+    valid: torch.Tensor,
+    semantic_image: torch.Tensor,
+    lidar_to_cam_rotation: torch.Tensor,
+    lidar_to_cam_translation: torch.Tensor,
+    intrinsics: torch.Tensor,
+    *,
+    ground_labels: tuple[int, ...] = (6, 7, 8, 9),
+    inlier_threshold: float = 10.2,
+) -> GroundPlane:
+    """Ground plane from a semantic label image [H, W] (integer labels).
+
+    SemanticPlane::CalculateInliersPlane (RansacPlane.cpp:195-274):
+    project the cloud into the image, keep the points that fall on a
+    ground label, LS-fit a plane to them in the lidar frame, select the
+    points of the full cloud within `inlier_threshold` of it and refit on
+    those.  As the JAX package, points behind the camera are left out."""
+    H, W = semantic_image.shape
+    pts = points_lidar.to(torch.float32)
+    p_cam = pts @ lidar_to_cam_rotation.T + lidar_to_cam_translation
+    proj = p_cam @ intrinsics.T
+    z = proj[:, 2]
+    safe_z = torch.where(z == 0, 1.0, z)
+    u = proj[:, 0] / safe_z
+    v = proj[:, 1] / safe_z
+    # The reference's inclusive bounds, 0 <= u <= cols (RansacPlane.cpp:
+    # 203-205); the clamp keeps the lookup inside the image.
+    in_img = (u >= 0) & (u <= W) & (v >= 0) & (v <= H) & (z > 0)
+    labels = semantic_image[_pixel_index(v, H - 1), _pixel_index(u, W - 1)]
+    on_ground = torch.zeros_like(in_img)
+    for lab in ground_labels:
+        on_ground = on_ground | (labels == lab)
+    seed = valid & in_img & on_ground
+
+    coeffs0 = _ls_plane(pts, seed.to(torch.float32))
+    dist = torch.abs(pts @ coeffs0[:3] + coeffs0[3])
+    refined_mask = valid & (dist < inlier_threshold)
+    coeffs = _ls_plane(pts, refined_mask.to(torch.float32))
+    return GroundPlane(coeffs=_orient_up(coeffs), inlier_mask=refined_mask,
+                       ok=seed.sum() >= 3)
+
+
+def _orient_up(coeffs: torch.Tensor) -> torch.Tensor:
+    """Canonical orientation: normal z-component >= 0."""
+    return coeffs * torch.where(coeffs[2] < 0, -1.0, 1.0)

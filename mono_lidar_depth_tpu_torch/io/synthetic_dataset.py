@@ -11,7 +11,7 @@ depth association → VO → metrics) runs end to end with no dataset.
 unchanged.  Its `generate_kitti_sequence` is split in two here:
 
   * `render_sequence`: the frames in memory (`SyntheticSequence`), which
-    offers what `eval.kitti_eval._frame_inputs` reads of a sequence;
+    offers what the evaluators of `eval.kitti_eval` read of a sequence;
   * `generate_kitti_sequence`: the disk writer (PNG images, velodyne
     .bin scans, calib.txt, times.txt, poses), which renders through the
     same code and imports PIL only when called.
@@ -263,14 +263,15 @@ def calibration(spec: SyntheticSpec) -> tuple[np.ndarray, np.ndarray]:
 
 
 class SyntheticSequence:
-    """A rendered sequence in memory, with what the frame-input loop
-    reads of a KITTI sequence: `len`, `scans(max_points)`, `image(i)`,
-    `times`, the camera and the lidar→camera transform, plus the
-    ground-truth poses."""
+    """A rendered sequence in memory, with what the evaluators read of
+    a KITTI sequence: `len`, `scans(max_points)`, `image(i)`,
+    `semantic(i)`, `times`, the camera and the lidar→camera transform,
+    plus the ground-truth poses."""
 
     def __init__(self, frames: list, P0: np.ndarray, Tr: np.ndarray,
                  image_width: int, image_height: int):
         self.images = [f.image for f in frames]
+        self.labels = [f.label for f in frames]
         self.raw_scans = [f.scan for f in frames]
         self.times = np.asarray([f.stamp for f in frames], np.float64)
         self.gt_poses = np.tile(np.eye(4), (len(frames), 1, 1))
@@ -301,6 +302,10 @@ class SyntheticSequence:
     def image(self, index: int) -> Optional[np.ndarray]:
         """Grayscale image as [H, W] uint8, or None if absent."""
         return self.images[index] if 0 <= index < len(self) else None
+
+    def semantic(self, index: int) -> Optional[np.ndarray]:
+        """Semantic label image as [H, W] uint8, or None if absent."""
+        return self.labels[index] if 0 <= index < len(self) else None
 
 
 def render_sequence(spec: SyntheticSpec = SyntheticSpec(), seed: int = 0

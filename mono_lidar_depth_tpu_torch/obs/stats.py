@@ -65,3 +65,28 @@ def success_rates(counters) -> dict:
         "success_rate_all": success / max(total, 1),
         "success_rate_lidar_covered": success / covered,
     }
+
+
+def format_stats_report(stats: DepthCalcStats) -> str:
+    """Human-readable dump in the spirit of
+    DepthCalculationStatistics::ToFile (absolute, % of all, % of
+    lidar-covered).  Reads the counters back to the host."""
+    acc = stats.accumulated.cpu().numpy()
+    rates = success_rates(acc)
+    total = max(rates["total_points"], 1)
+    covered = max(total - int(acc[R.RadiusSearchInsufficientPoints]), 1)
+    lines = [
+        f"frames: {int(stats.frames)}  feature points: {total}",
+        f"success (all): {rates['success']} = {100.0 * rates['success_rate_all']:.2f}%",
+        f"success (lidar-covered): {100.0 * rates['success_rate_lidar_covered']:.2f}%",
+        "",
+        f"{'outcome':42s} {'count':>10s} {'% all':>8s} {'% covered':>10s}",
+    ]
+    for code in R:
+        c = int(acc[code])
+        if c == 0 and code not in (R.Success, R.RadiusSearchInsufficientPoints):
+            continue
+        lines.append(
+            f"{code.name:42s} {c:10d} {100.0 * c / total:8.2f} "
+            f"{100.0 * c / covered:10.2f}")
+    return "\n".join(lines)

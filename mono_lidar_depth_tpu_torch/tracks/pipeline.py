@@ -5,14 +5,13 @@ One call per frame: RANSAC ground plane of the current cloud, track
 matching, the fused two-frame depth estimator (previous-frame features
 of new tracks against the cached last frame, newest features against
 the current frame), and the track-table update.  State is an explicit
-NamedTuple passed in and returned.
-
-The semantic ground plane (a `FrameInput` with `semantic` set) is not
-ported yet and raises.
+NamedTuple passed in and returned.  A frame that carries a semantic label
+image takes its ground plane from the road classes instead of RANSAC.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple, Optional, Union
 
 import torch
@@ -22,7 +21,8 @@ from ..core.depth_estimator import (estimate_depths_pair, no_ground_plane,
                                     rasterize_cloud)
 from ..core.geometry import SE3, PinholeCamera
 from ..core.projection import POINT_NOT_DEFINED, FrameCloud
-from ..core.ransac import GroundPlane, RansacDraws, fit_ground_plane_ransac
+from ..core.ransac import (GroundPlane, RansacDraws, fit_ground_plane_ransac,
+                           fit_ground_plane_semantic)
 from ..core.result_types import NUM_RESULT_TYPES
 from ..device import Device, default_device
 from .table import TrackTable, match_tracks, update_tracks
@@ -30,9 +30,6 @@ from .table import TrackTable, match_tracks, update_tracks
 # RANSAC randomness of one frame: a generator on the cloud's device, or
 # pre-drawn (sub_idx, picks) indices.
 RansacRng = Union[torch.Generator, RansacDraws, tuple]
-
-_NO_SEMANTIC = ("the semantic ground plane (FrameInput.semantic / "
-                "fit_ground_plane_semantic) is not ported yet")
 
 
 def _empty_frame_cloud(cfg: DepthEstimatorConfig,
@@ -86,7 +83,14 @@ class FrameInput(NamedTuple):
     uv_prev: torch.Tensor  # [M, 2] previous-frame feature per track
     stamp: torch.Tensor  # [] time
     rng: RansacRng  # RANSAC generator or pre-drawn (sub_idx, picks)
-    semantic: Optional[torch.Tensor] = None  # not ported: must be None
+    semantic: Optional[torch.Tensor] = None  # [H, W] label image or None
+
+
+@lru_cache(maxsize=None)
+def _intrinsics(camera: PinholeCamera, device: torch.device) -> torch.Tensor:
+    """The camera matrix on `device`, made once: building it from a host
+    list on every frame would synchronize with the card."""
+    return camera.intrinsics(device)
 
 
 def _ground_plane(cfg: DepthEstimatorConfig, cloud: torch.Tensor,
@@ -107,6 +111,24 @@ def _ground_plane(cfg: DepthEstimatorConfig, cloud: torch.Tensor,
         refinement_threshold=cfg.ransac_plane_refinement_treshold)
 
 
+def _frame_ground_plane(cfg: DepthEstimatorConfig, camera: PinholeCamera,
+                        lidar_to_cam: SE3, cloud: torch.Tensor,
+                        cloud_valid: torch.Tensor, rng: RansacRng,
+                        semantic: Optional[torch.Tensor]) -> GroundPlane:
+    """The ground plane of one cloud: none when the road pass is off, from
+    the semantic road classes when the frame carries a label image (the
+    reference's 4-way-sync path), else from RANSAC."""
+    if not cfg.do_use_ransac_plane:
+        return no_ground_plane(cfg.max_points, cloud.device)
+    if semantic is not None:
+        return fit_ground_plane_semantic(
+            cloud, cloud_valid, semantic, lidar_to_cam.rotation,
+            lidar_to_cam.translation, _intrinsics(camera, cloud.device),
+            ground_labels=cfg.semantic_ground_labels,
+            inlier_threshold=cfg.ransac_plane_refinement_treshold)
+    return _ground_plane(cfg, cloud, cloud_valid, rng)
+
+
 def prime_state(cfg: DepthEstimatorConfig, camera: PinholeCamera,
                 lidar_to_cam: SE3, state: TrackletDepthState,
                 cloud: torch.Tensor, cloud_valid: torch.Tensor,
@@ -115,12 +137,8 @@ def prime_state(cfg: DepthEstimatorConfig, camera: PinholeCamera,
                 ) -> TrackletDepthState:
     """Install a cloud (+ its ground plane, rasterized) as the 'last
     frame' before the first processed frame."""
-    if semantic is not None:
-        raise NotImplementedError(_NO_SEMANTIC)
-    if cfg.do_use_ransac_plane:
-        gp = _ground_plane(cfg, cloud, cloud_valid, key)
-    else:
-        gp = no_ground_plane(cfg.max_points, cloud.device)
+    gp = _frame_ground_plane(cfg, camera, lidar_to_cam, cloud, cloud_valid,
+                             key, semantic)
     frame = rasterize_cloud(cfg, camera, lidar_to_cam, cloud, cloud_valid, gp)
     return state._replace(frame_last=frame, gp_last=gp)
 
@@ -133,13 +151,8 @@ def process_frame(
     frame: FrameInput,
 ) -> tuple[TrackletDepthState, torch.Tensor, torch.Tensor]:
     """Process one frame; returns (state', depths_new [M], codes_new [M])."""
-    if frame.semantic is not None:
-        raise NotImplementedError(_NO_SEMANTIC)
-    if cfg.do_use_ransac_plane:
-        gp = _ground_plane(cfg, frame.cloud, frame.cloud_valid, frame.rng)
-    else:
-        gp = no_ground_plane(cfg.max_points, frame.cloud.device)
-
+    gp = _frame_ground_plane(cfg, camera, lidar_to_cam, frame.cloud,
+                             frame.cloud_valid, frame.rng, frame.semantic)
     slot_exist, is_new = match_tracks(state.table, frame.ids, frame.ids_valid)
     frame_cur = rasterize_cloud(cfg, camera, lidar_to_cam, frame.cloud,
                                 frame.cloud_valid, gp)
@@ -155,3 +168,30 @@ def process_frame(
         table=table, frame_last=frame_cur, gp_last=gp,
         counters=state.counters + est_new.counters + est_prev.counters)
     return new_state, est_new.depths, est_new.codes
+
+
+def process_sequence(cfg: DepthEstimatorConfig, camera: PinholeCamera,
+                     lidar_to_cam: SE3, state: TrackletDepthState,
+                     frames: FrameInput
+                     ) -> tuple[TrackletDepthState, torch.Tensor,
+                                torch.Tensor]:
+    """`process_frame` over a stacked sequence: every tensor field of
+    `frames` has a leading time axis [F, ...]; `rng` is one generator for
+    all frames or a stacked `(sub_idx [F, S_sub], picks [F, S, 3])`.
+    Returns (final state, depths [F, M], codes [F, M])."""
+    F = frames.cloud.shape[0]
+    depths, codes = [], []
+    for k in range(F):
+        rng = frames.rng
+        if not isinstance(rng, torch.Generator):
+            rng = RansacDraws(rng[0][k], rng[1][k])
+        frame = FrameInput(
+            cloud=frames.cloud[k], cloud_valid=frames.cloud_valid[k],
+            ids=frames.ids[k], ids_valid=frames.ids_valid[k],
+            uv_new=frames.uv_new[k], uv_prev=frames.uv_prev[k],
+            stamp=frames.stamp[k], rng=rng,
+            semantic=None if frames.semantic is None else frames.semantic[k])
+        state, d, c = process_frame(cfg, camera, lidar_to_cam, state, frame)
+        depths.append(d)
+        codes.append(c)
+    return state, torch.stack(depths), torch.stack(codes)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time of the full-size odometry step and of the tracker's
-`track_frame` goes, on one CUDA GPU.
+"""Where the time of the full-size odometry step, of the tracker's
+`track_frame` and of the two optional depth configurations goes, on one
+CUDA GPU.
 
     python3 profile_step.py
 
@@ -27,6 +28,15 @@ with the same plan (4 warm, 4 timed alone, 3 profiled), its stages being
 `build_pyramid`, `track_features` (8 `lk_level` launches and the one
 `zncc_gate` launch), `detect_features`, and the lane bookkeeping that
 remains.
+
+Last the optional configurations, on the same rendered frames with their
+scans in Velodyne order (chip_smoke.VelodyneOrder) and the tracker's
+outputs made beforehand: `odometry_step` with the defaults and then with
+`do_use_depth_segmentation=True` (stages `segment_rows`, `grow_regions`,
+the two `estimate_depths_from_frame` passes), and `process_frame` with
+the RANSAC plane and then with the semantic plane (stage
+`fit_ground_plane_semantic`), each with the same plan, so that the device
+time and the activities that a configuration adds can be read off.
 """
 
 from __future__ import annotations
@@ -49,6 +59,15 @@ STAGES = [("tracks", "_ground_plane", "ransac"),
           ("vo", "run_ba", "window_ba")]
 
 
+# What the optional configurations add to the stages of a step.
+OPTION_STAGES = STAGES + [
+    ("tracks", "fit_ground_plane_semantic", "fit_ground_plane_semantic"),
+    ("depth", "estimate_depths_from_frame", "depths_from_frame"),
+    ("depth", "segment_rows", "segment_rows"),
+    ("depth", "grow_regions", "grow_regions")]
+# Stages that run inside `depth_pair`: shown, not added to the stages' sum.
+NESTED = {"depths_from_frame", "segment_rows", "grow_regions"}
+
 # The stages of one track_frame (all called from tracker/frontend.py).
 TRACK_STAGES = [("frontend", "build_pyramid", "build_pyramid"),
                 ("frontend", "track_features", "track_features"),
@@ -59,11 +78,13 @@ TRACK_STAGES = [("frontend", "build_pyramid", "build_pyramid"),
 def labelled_stages(stages=STAGES):
     """Wrap each stage function in a profiler range named after it."""
     import torch
+    from mono_lidar_depth_tpu_torch.core import depth_estimator as depth
     from mono_lidar_depth_tpu_torch.tracker import frontend
     from mono_lidar_depth_tpu_torch.tracks import pipeline as tracks
     from mono_lidar_depth_tpu_torch.vo import pipeline as vo
 
-    modules = {"tracks": tracks, "vo": vo, "frontend": frontend}
+    modules = {"tracks": tracks, "vo": vo, "frontend": frontend,
+               "depth": depth}
     saved = []
     for mod_name, fn_name, label in stages:
         mod = modules[mod_name]
@@ -132,7 +153,10 @@ def profile_calls(what: str, call, stages, card: str) -> None:
             print(f"{label} | 0 | - | -")
             continue
         dev_ms = row.device_time_total / 1e3 / PROFILED
-        staged += dev_ms
+        if label in NESTED:
+            label += " (inside depth_pair)"
+        else:
+            staged += dev_ms
         print(f"{label} | {row.count / PROFILED:g} | "
               f"{row.cpu_time_total / 1e3 / PROFILED:.3f} | {dev_ms:.3f}")
     print(f"device time inside the stages: {staged:.3f} of {busy:.3f} "
@@ -179,6 +203,59 @@ def main() -> int:
     profile_calls(f"track_frame ({sc.cfg.max_features} lanes, {cs.LEVELS} "
                   f"levels, {seq.camera.width}x{seq.camera.height})", track,
                   TRACK_STAGES, card)
+    # ---- the optional configurations on the rendered frames
+    vseq = cs.VelodyneOrder(seq)
+    l2c = seq.lidar_to_cam(dev)
+    prime: list = []
+    inputs = [f for f, _ in T.frame_inputs(
+        vseq, sc.cfg, prime=prime, pyramid_levels=cs.LEVELS,
+        use_semantics=True, device=dev, seed=cs.SEED)]
+    cloud0, valid0, sem0 = prime[0]
+    cfg_rg = T.DepthEstimatorConfig(do_use_depth_segmentation=True)
+
+    def odometry_on(cfg):
+        state = T.OdometryState.create(cfg, sc.ocfg, cfg.max_features, 12,
+                                       dev)
+        state = state._replace(tracklets=T.prime_state(
+            cfg, seq.camera, l2c, state.tracklets, cloud0, valid0,
+            torch.Generator(device=dev).manual_seed(cs.SEED)))
+        it = iter(inputs)
+
+        def step():
+            nonlocal state
+            state, *_ = T.odometry_step(
+                cfg, sc.ocfg, seq.camera, l2c, state,
+                next(it)._replace(semantic=None))
+        return step
+
+    def process_on(semantic: bool):
+        state = T.TrackletDepthState.create(sc.cfg, sc.cfg.max_features, 12,
+                                            dev)
+        state = T.prime_state(
+            sc.cfg, seq.camera, l2c, state, cloud0, valid0,
+            torch.Generator(device=dev).manual_seed(cs.SEED),
+            semantic=sem0 if semantic else None)
+        it = iter(inputs)
+
+        def step():
+            nonlocal state
+            frame = next(it)
+            state, *_ = T.process_frame(
+                sc.cfg, seq.camera, l2c, state,
+                frame if semantic else frame._replace(semantic=None))
+        return step
+
+    for what, call in (
+            ("odometry step on the rendered frames, defaults",
+             odometry_on(sc.cfg)),
+            ("odometry step on the rendered frames, region growing on",
+             odometry_on(cfg_rg)),
+            ("process_frame on the rendered frames, RANSAC plane",
+             process_on(False)),
+            ("process_frame on the rendered frames, semantic plane",
+             process_on(True))):
+        print()
+        profile_calls(what, call, OPTION_STAGES, card)
     print(card)
     return 0
 

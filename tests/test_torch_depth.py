@@ -275,13 +275,18 @@ def test_estimate_depths_pair():
 
 
 def test_unported_configurations_raise():
-    tcfg = T.DepthEstimatorConfig(**dict(SMALL,
-                                         do_use_depth_segmentation=True))
+    """Region growing (`do_use_depth_segmentation=True`) used to raise; it
+    runs now.  On this unordered cloud the row segmentation finds no
+    coherent rows, so every feature falls through to the regular
+    pipeline: codes and counters as JAX's (tests/test_torch_rowseg.py
+    holds the configuration on row-ordered scans)."""
+    kw = dict(SMALL, do_use_depth_segmentation=True)
+    jcfg, tcfg = J.DepthEstimatorConfig(**kw), T.DepthEstimatorConfig(**kw)
     cloud, valid, uv, fvalid = _scene(0)
-    with pytest.raises(NotImplementedError, match="row_segmentation"):
-        T.estimate_depths(tcfg, TCAM, TT, torch.from_numpy(cloud),
-                          torch.from_numpy(valid), torch.from_numpy(uv),
-                          torch.from_numpy(fvalid))
+    jest, test, witness = _estimate_both(jcfg, tcfg, cloud, valid, uv,
+                                         fvalid, 0)
+    _assert_depths_agree(test, jest, witness)
+    assert not hasattr(T.core.depth_estimator, "_check_supported")
 
 
 @pytest.mark.parametrize("options", [

@@ -146,11 +146,18 @@ def test_load_payload_and_semantics(written):
     for a, b in zip(got[:3], want[:3]):
         assert a.dtype == b.dtype and np.array_equal(a, b)
     assert got[3] is None and want[3] is None
-    with pytest.raises(NotImplementedError, match="semantic"):
+    want = jeval._load_payload(disk, jcfg, 0, jx, jc, True)
+    got = teval._load_payload(mem, tcfg, 0, xyzi, count, True)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert got[3].dtype == np.int32 and got[3].shape == (128, 384)
+    frame, f = next(teval._frame_inputs(mem, tcfg, use_semantics=True,
+                                        device="cpu"))
+    assert f == 1 and frame.semantic.dtype == torch.int32
+    assert np.array_equal(frame.semantic.numpy(), mem.semantic(1))
+    mem.labels = [None] * len(mem)  # a sequence without label images
+    with pytest.raises(FileNotFoundError, match="semantic"):
         teval._load_payload(mem, tcfg, 0, xyzi, count, True)
-    with pytest.raises(NotImplementedError, match="semantic"):
-        next(teval._frame_inputs(mem, tcfg, use_semantics=True,
-                                 device="cpu"))
     with pytest.raises(FileNotFoundError):
         teval._load_payload(mem, tcfg, len(mem), xyzi, count, False)
 

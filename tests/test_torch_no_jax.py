@@ -84,7 +84,9 @@ def test_new_modules_are_covered():
     assert {"tracker/harris.py", "tracker/klt.py", "tracker/frontend.py",
             "tracker/__init__.py", "eval/kitti_eval.py",
             "io/synthetic_dataset.py", "vo/metrics.py", "device.py",
-            "core/neighbors.py", "core/windows.py", "kernels.py"} <= have
+            "core/neighbors.py", "core/windows.py", "kernels.py",
+            "core/row_segmentation.py", "io/kitti.py", "io/native.py",
+            "io/messages.py", "io/checkpoint.py", "obs/timing.py"} <= have
 
 
 @pytest.mark.parametrize("source", sorted(
@@ -214,7 +216,12 @@ def test_no_public_default_is_the_cpu():
                  "convert.state_from_numpy", "obs.stats.DepthCalcStats.zeros",
                  "core.geometry.PinholeCamera.intrinsics",
                  "core.geometry.SE3.identity",
-                 "eval.kitti_eval.eval_vo_sequence"):
+                 "eval.kitti_eval.eval_vo_sequence",
+                 "eval.kitti_eval.eval_depth_sequence",
+                 "eval.kitti_eval.measure_depth_device_time",
+                 "io.kitti.KittiSequence.lidar_to_cam",
+                 "io.kitti.KittiCalib.lidar_to_cam",
+                 "io.synthetic_dataset.SyntheticSequence.lidar_to_cam"):
         assert f"mono_lidar_depth_tpu_torch.{want}" in seen, want
 
 
@@ -254,3 +261,76 @@ def test_synthetic_scan_copy_matches(seed, n):
     pa, va = jkitti.pad_cloud(a, n, n + 100)
     pb, vb = tkitti.pad_cloud(b, n, n + 100)
     assert pa.tobytes() == pb.tobytes() and np.array_equal(va, vb)
+
+
+def _source(obj) -> str:
+    """Source of a function or class without its docstrings' text."""
+    tree = ast.parse(inspect.cleandoc("\n" + inspect.getsource(obj)))
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and (
+                ast.get_docstring(node) is not None):
+            node.body = node.body[1:] or [ast.Pass()]
+    return ast.unparse(tree)
+
+
+@pytest.mark.parametrize("module,names", [
+    ("io.native", ["_load", "native_available", "read_velodyne_native",
+                   "NativeScanLoader"]),
+    ("io.messages", ["FeatureTracks"]),
+    ("io.kitti", ["read_velodyne", "pad_cloud", "make_synthetic_scan"]),
+    ("eval.kitti_eval", ["_prefetch_iter", "_dev_img"]),
+    ("obs.stats", ["success_rates"]),
+])
+def test_host_module_copies_match(module, names):
+    """The host-side modules that the port copies (the originals sit in a
+    package that imports JAX): the same code, docstrings aside."""
+    jmod = importlib.import_module(f"mono_lidar_depth_tpu.{module}")
+    tmod = importlib.import_module(f"mono_lidar_depth_tpu_torch.{module}")
+    for name in names:
+        ours, theirs = _source(getattr(tmod, name)), _source(
+            getattr(jmod, name))
+        if name == "_dev_img":  # astype(float32) / 255 against .to(...)
+            assert ours.split("/")[1] == theirs.split("/")[1] == " 255.0"
+            continue
+        if name == "success_rates":  # one local variable inlined
+            assert "SuccessRegionGrowing" in ours and "covered" in ours
+            continue
+        assert ours == theirs, name
+    if module == "io.native":
+        assert tmod._NATIVE_DIR == jmod._NATIVE_DIR == REPO / "native"
+        assert tmod._LIB_PATH == jmod._LIB_PATH
+    if module == "io.messages":
+        assert [f.name for f in dataclasses.fields(tmod.FeatureTracks)] == [
+            f.name for f in dataclasses.fields(jmod.FeatureTracks)]
+
+
+def test_kitti_loader_interface_matches():
+    """The port's KittiSequence has the JAX loader's public attributes and
+    methods, plus what SyntheticSequence offers the evaluators."""
+    from mono_lidar_depth_tpu_torch.io.synthetic_dataset import (
+        SyntheticSequence)
+
+    def public(cls):
+        return {n for n in vars(cls) if not n.startswith("_")}
+
+    assert public(jkitti.KittiSequence) <= public(tkitti.KittiSequence)
+    assert {"scans", "image", "semantic", "lidar_to_cam"} <= (
+        public(tkitti.KittiSequence) & public(SyntheticSequence))
+    for name in ("_load_poses", "scans"):
+        assert _source(getattr(tkitti.KittiSequence, name)) == _source(
+            getattr(jkitti.KittiSequence, name))
+    assert inspect.signature(tkitti.KittiSequence.__init__) == (
+        inspect.signature(jkitti.KittiSequence.__init__))
+
+
+def test_unported_markers_are_gone():
+    """Neither optional configuration raises any more."""
+    from mono_lidar_depth_tpu_torch.core import depth_estimator
+    from mono_lidar_depth_tpu_torch.tracks import pipeline
+
+    for mod, name in ((depth_estimator, "_NO_ROW_SEGMENTATION"),
+                      (depth_estimator, "_check_supported"),
+                      (pipeline, "_NO_SEMANTIC")):
+        assert not hasattr(mod, name), name
+    for path in PKG.rglob("*.py"):
+        assert "NotImplementedError" not in path.read_text(), path

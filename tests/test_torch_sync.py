@@ -37,7 +37,7 @@ from torch_parity import (assert_trees_equal, jax_ransac_draws, to_numpy,
 
 PKG = Path(T.__file__).resolve().parent
 PER_FRAME = sorted(str(p.relative_to(PKG)) for d in
-                   ("core", "tracks", "vo", "tracker")
+                   ("core", "tracks", "vo", "tracker", "eval", "obs")
                    for p in (PKG / d).glob("*.py"))
 
 
@@ -204,3 +204,53 @@ def test_update_tracks_seed_length(T_slots, M):
         np.testing.assert_array_equal(tslot.numpy(), np.asarray(jslot))
     length = tt.length.numpy()
     assert set(np.unique(length)) <= {0, 2, 3, 4} and (length == 2).any()
+
+
+@pytest.mark.parametrize("path,functions", [
+    ("core/row_segmentation.py", None),
+    ("core/ransac.py", ["fit_ground_plane_semantic", "_pixel_index",
+                        "_ls_plane", "_orient_up"]),
+    ("tracks/pipeline.py", ["_frame_ground_plane", "process_frame",
+                            "process_sequence"]),
+    ("eval/kitti_eval.py", ["_scan_depth_chunk", "_scan_vo_chunk",
+                            "_chunk_frame", "_frame_rng"]),
+])
+def test_no_read_back_in_the_new_per_frame_code(path, functions):
+    """Region growing, the semantic plane and the chunk runners read
+    nothing back to the host: no `.item()`, `.tolist()`, `.cpu()`,
+    `.numpy()`, `int(...)`, `float(...)` or `bool(...)` of a tensor, and no
+    Python loop over features (`for` appears only over frames, scales and
+    labels)."""
+    tree = ast.parse((PKG / path).read_text())
+    checked = 0
+    for fn in ast.walk(tree):
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        if functions is not None and fn.name not in functions:
+            continue
+        checked += 1
+        for node in ast.walk(fn):
+            if isinstance(node, ast.Call):
+                name = ast.unparse(node.func)
+                assert name.rsplit(".", 1)[-1] not in (
+                    "item", "tolist", "cpu", "numpy"), (fn.name, node.lineno)
+                assert name not in ("bool",), (fn.name, node.lineno)
+                if name in ("int", "float"):  # enum members and config only
+                    arg = ast.unparse(node.args[0])
+                    assert arg.startswith(("R.", "last", "W", "H", '"', "'")), (
+                        fn.name, arg)
+    assert checked >= (4 if functions is None else len(functions))
+
+
+def test_intrinsics_are_made_once_per_camera_and_device():
+    """The semantic branch takes the camera matrix from a cache: building
+    it from a host list on every frame would synchronize with the card."""
+    from mono_lidar_depth_tpu_torch.tracks import pipeline
+
+    cam = T.PinholeCamera(width=64, height=48, focal_length=50.0, cx=32.0,
+                          cy=24.0)
+    a = pipeline._intrinsics(cam, torch.device("cpu"))
+    assert pipeline._intrinsics(cam, torch.device("cpu")) is a
+    assert torch.equal(a, cam.intrinsics("cpu"))
+    other = pipeline._intrinsics(cam._replace(cx=30.0), torch.device("cpu"))
+    assert other is not a and float(other[0, 2]) == 30.0

@@ -171,13 +171,23 @@ def test_process_frame_four_frames():
 
 
 def test_semantic_frames_raise():
+    """A frame with a label image used to raise; now its ground plane
+    comes from the label image: an image without a ground label gives no
+    plane (ok False), one that is all road gives one, and neither draws
+    from the frame's generator."""
     cfg = T.DepthEstimatorConfig(**SMALL)
     f = _frames(cfg, 1, seed=0)[0]
-    frame = T.FrameInput(**{k: torch.tensor(v) for k, v in f.items()},
-                         rng=torch.Generator().manual_seed(0),
-                         semantic=torch.zeros((128, 384), dtype=torch.int32))
+    cam = T.PinholeCamera(**CAMERA)
+    l2c = T.SE3(torch.from_numpy(R_LC), torch.from_numpy(T_LC))
     state = T.TrackletDepthState.create(cfg, cfg.max_features, 8, "cpu")
-    with pytest.raises(NotImplementedError, match="semantic"):
-        T.process_frame(cfg, T.PinholeCamera(**CAMERA),
-                        T.SE3(torch.from_numpy(R_LC),
-                              torch.from_numpy(T_LC)), state, frame)
+    gen = torch.Generator().manual_seed(0)
+    before = gen.get_state()
+    for label, ok in ((0, False), (7, True)):
+        frame = T.FrameInput(
+            **{k: torch.tensor(v) for k, v in f.items()}, rng=gen,
+            semantic=torch.full((128, 384), label, dtype=torch.int32))
+        new_state, depths, codes = T.process_frame(cfg, cam, l2c, state,
+                                                   frame)
+        assert bool(new_state.gp_last.ok) == ok
+        assert depths.shape == codes.shape == (cfg.max_features,)
+    assert torch.equal(gen.get_state(), before)
