@@ -53,6 +53,21 @@ Phases, each printed on its own lines:
                `eval_vo_sequence` with the same poses and launch counts,
                and the card in agreement with the CPU's plain versions
                frame by frame.
+  7. sequence — the chunked sequence evaluators (RANSAC and semantic
+               plane, each also with region growing), checkpoint and
+               resume, and the loader, on phase 6's frames.
+  8. posegraph — config 4 at the KITTI size: `eval_vo_sequence` over a
+               LOOP_FRAMES-frame rendered loop, then closure proposal
+               (metric and appearance), verification of every candidate
+               (per direction one device call that launches exactly 8
+               `lk_level`, 1 `zncc_gate` and 1 `gather_neighbors` and
+               never waits for the host) and `run_pose_graph_backend`,
+               without and with injected drift (ATE must fall, below 0.7x
+               under drift); the first CPU_PAIRS pairs and the backend on
+               the CPU too; then `optimize_pose_graph` at KITTI-00 scale
+               (4541 poses): ms per GN iteration and per stage, host syncs
+               per GN iteration (at most one per 8 PCG iterations), peak
+               memory, and the card against the CPU.
 
 The kernels' JSON record and the card line (nvidia-smi's name and power
 limit) come just before the last line, which is {"ok": true, "device":
@@ -120,6 +135,33 @@ PEAK_FP32_S = 67e12
 # the main-path run: 0.2892 measured on an H100 80GB HBM3 at 700 W
 # (PERF.md); the floor sits below it.
 SUCCESS_FLOOR = 0.2
+# Phase 8: config 4 as PARITY_r5.md ran it (scripts/make_parity_record.py):
+# the 220-frame synthetic loop, here at the KITTI size; candidates are the
+# union of the metric and the appearance proposer; leg 4b injects 0.5
+# deg/frame of yaw and 8% of scale into the VO poses.  (The 84-frame loop
+# of tests/test_kitti_synthetic.py turns 4.3 deg per frame, a 53 px flow at
+# 1226x370 that the tracker's pyramid does not reach: RPE 3.7 deg per
+# frame on the card.)  The first CPU_PAIRS pairs the card accepted that
+# are true revisits (ground truth within REVISIT_M metres; two pairs 32
+# frames apart verified too, and the filter dropped them), the first
+# pair it rejected and the backend run on the CPU too.
+LOOP_FRAMES = 220
+LOOP_PROPOSE = dict(min_gap=30, radius=8.0, stride=2, max_candidates=12)
+LOOP_DRIFT = (0.5, 1.08)  # yaw deg per frame, scale per frame
+CPU_PAIRS = 3
+REVISIT_M = 4.0
+# Card vs CPU on the same inputs and draws: a closure's Z_R (rad), Z_t (m)
+# and w6 (the bars of tests/test_torch_closures.py against JAX); the
+# backend's positions (share of the extent) and rotations (rad) after its
+# 20 fp32 GN iterations.
+CLOSURE_TOL = (2e-3, 2e-2, 2e-2)
+BACKEND_TOL = (1e-3, 5e-3)
+# The KITTI-00-scale graph (__graft_entry__.py) and its solve; card vs
+# CPU positions (share of the extent) and rotations (rad), the bars of
+# tests/test_torch_pose_graph.py against JAX.
+KITTI00_POSES = 4541
+PG_GN_ITERS, PG_CG_ITERS = 4, 250
+KITTI00_TOL = (1e-6, 2e-4)
 KITTI_CAMERA = dict(width=1226, height=370, focal_length=707.0, cx=601.8,
                     cy=183.1)
 R_LC = np.array([[0, -1, 0], [0, 0, -1], [1, 0, 0]], dtype=np.float32)
@@ -2102,6 +2144,411 @@ def phase_sequence(card: str, seq) -> dict:
     return main_counts
 
 
+# --------------------------------------------------------------- phase 8
+
+def _drift(poses, yaw_deg: float = 1.5, scale: float = 1.12):
+    """tests/test_kitti_synthetic.py's drift: the relative motions of a
+    trajectory recomposed with a constant yaw bias and scale error per
+    frame."""
+    yaw = math.radians(yaw_deg)
+    dR = np.array([[math.cos(yaw), 0, math.sin(yaw)], [0, 1, 0],
+                   [-math.sin(yaw), 0, math.cos(yaw)]])
+    out = [poses[0]]
+    for k in range(len(poses) - 1):
+        rel = np.linalg.inv(poses[k]) @ poses[k + 1]
+        rel[:3, :3] = rel[:3, :3] @ dR
+        rel[:3, 3] *= scale
+        out.append(out[-1] @ rel)
+    return np.stack(out)
+
+
+def _angle(Ra, Rb) -> float:
+    """Largest rotation angle (rad) between two stacks of rotations, from
+    the skew part of Ra^T Rb."""
+    E = (np.asarray(Ra, np.float64).swapaxes(-1, -2)
+         @ np.asarray(Rb, np.float64))
+    return float((np.linalg.norm(E - E.swapaxes(-1, -2), axis=(-2, -1))
+                  / (2 * math.sqrt(2))).max())
+
+
+def kitti00_graph(device, seed: int = SEED):
+    """The KITTI-00-scale pose graph of __graft_entry__.py, built with
+    numpy: KITTI00_POSES poses on a straight chain (identity rotations,
+    300 m x 500 m), its odometry edges, 20 closures of span 301, and
+    positions perturbed by 0.05 m.  Pose 0 is fixed."""
+    import torch
+    from mono_lidar_depth_tpu_torch.vo.pose_graph import PoseGraph
+
+    rng = np.random.default_rng(seed)
+    n = KITTI00_POSES
+    ang = np.linspace(0, 1.0, n).astype(np.float32)
+    R = np.tile(np.eye(3, dtype=np.float32), (n, 1, 1))
+    t = np.stack([ang * 300, np.zeros(n, np.float32), ang * 500], 1)
+    ci = np.linspace(0, n - 302, 20).astype(np.int64)
+    cj = ci + 301
+    ei = np.concatenate([np.arange(n - 1), ci])
+    ej = np.concatenate([np.arange(1, n), cj])
+    Z_R = np.einsum("nij,nik->njk", R[ei], R[ej]).astype(np.float32)
+    Z_t = np.einsum("nij,ni->nj", R[ei], t[ej] - t[ei]).astype(np.float32)
+    E = len(ei)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return PoseGraph(
+        R=dev(R), t=dev(t + rng.normal(0, 0.05, t.shape).astype(np.float32)),
+        edge_i=dev(ei), edge_j=dev(ej), Z_R=dev(Z_R), Z_t=dev(Z_t),
+        edge_weight=dev(np.ones(E, np.float32)),
+        edge_valid=dev(np.ones(E, bool)), fixed=dev(np.arange(n) == 0))
+
+
+def phase_posegraph(card: str) -> dict:
+    """Config 4 at the KITTI size: VO over a rendered loop, closure
+    proposal, verification (the three kernels again, one device call per
+    direction) and the pose-graph backend, without and with injected
+    drift; then the pose graph alone at KITTI-00 scale."""
+    import warnings
+
+    import torch
+    import mono_lidar_depth_tpu_torch as T
+    from mono_lidar_depth_tpu_torch.core import neighbors, windows
+    from mono_lidar_depth_tpu_torch.core.ransac import RansacDraws
+    from mono_lidar_depth_tpu_torch.eval import kitti_eval
+    from mono_lidar_depth_tpu_torch.tracker import klt
+    from mono_lidar_depth_tpu_torch.vo import closures
+    from mono_lidar_depth_tpu_torch.vo import pose_graph as pg
+    from mono_lidar_depth_tpu_torch.vo.metrics import ate_rmse
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    cfg, ocfg = T.DepthEstimatorConfig(), T.OdometryConfig()
+    N = cfg.max_features
+    kernel_names = ("lk_level", "zncc_gate", "slice_windows",
+                    "gather_neighbors")
+    per_direction = (2 * LEVELS, 1, 0, 1)
+
+    def launched():
+        return (klt.launches, klt.gate_launches, windows.launches,
+                neighbors.launches)
+
+    t0 = time.perf_counter()
+    seq = T.render_sequence(T.SyntheticSpec(frames=LOOP_FRAMES, step=0.55,
+                                            loop=True), seed=SEED)
+    render_s = time.perf_counter() - t0
+
+    # Every verification direction's device call, as the main path makes
+    # it: CUDA-event ms, kernel launches, host syncs inside.
+    directions = []
+    real_device = closures._closure_pose_device
+
+    def recorded(*args, **kwargs):
+        before = launched()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                start.record()
+                out = real_device(*args, **kwargs)
+                stop.record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        directions.append((start.elapsed_time(stop),
+                           tuple(b - a for a, b in zip(before, launched())),
+                           _sync_places(caught)))
+        return out
+
+    solves = []  # closure edges of every solve of the backend
+    real_opt = closures.optimize_pose_graph
+
+    def counted(g, **kw):
+        solves.append(g.edge_i.shape[0] - (g.R.shape[0] - 1))
+        return real_opt(g, **kw)
+
+    # ---- main path, counts from 0: VO, then both legs
+    klt.launches = klt.gate_launches = 0
+    windows.launches = neighbors.launches = 0
+    closures._closure_pose_device = recorded
+    closures.optimize_pose_graph = counted
+    legs = {}
+    try:
+        t0 = time.perf_counter()
+        vo = T.eval_vo_sequence(seq, cfg, ocfg, max_tracks=N, max_length=12,
+                                verbose=False, device=dev, seed=SEED)
+        vo_s = time.perf_counter() - t0
+        vo_counts = launched()
+        poses, ids = vo["poses"], vo["frame_ids"]
+        gt = seq.gt_poses[ids]
+
+        measured = {}
+
+        def verify(a, b):  # each pair once: the legs share candidates
+            if (a, b) not in measured:
+                measured[a, b] = kitti_eval.closure_constraint_from_frames(
+                    seq, cfg, ids[a], ids[b], max_features=N, device=dev)
+            return measured[a, b]
+
+        appearance = T.eval.propose_loop_closures_appearance(
+            seq, ids, min_gap=LOOP_PROPOSE["min_gap"],
+            stride=LOOP_PROPOSE["stride"],
+            max_candidates=LOOP_PROPOSE["max_candidates"])
+        for leg, traj, propose_kw in (
+                ("4", poses, LOOP_PROPOSE),
+                ("4b", _drift(poses, *LOOP_DRIFT),
+                 dict(LOOP_PROPOSE, min_candidates=6))):
+            cands = T.eval.union_closure_candidates(
+                T.eval.propose_loop_closures(traj, **propose_kw),
+                appearance)
+            first = len(directions)
+            t0 = time.perf_counter()
+            found = []
+            for i, j in cands:
+                z = verify(i, j)
+                if z is not None:
+                    found.append((i, j, *z))
+            verify_s = time.perf_counter() - t0
+            del solves[:]
+            t0 = time.perf_counter()
+            opt = T.eval.run_pose_graph_backend(traj, found,
+                                                remeasure=verify,
+                                                device=dev)
+            backend_s = time.perf_counter() - t0
+            legs[leg] = dict(
+                cands=cands, found=found, opt=opt, verify_s=verify_s,
+                backend_s=backend_s, solves=list(solves),
+                ate_before=ate_rmse(traj[:, :3, 3], gt[:, :3, 3]),
+                ate_after=ate_rmse(opt[:, :3, 3], gt[:, :3, 3]),
+                directions=len(directions) - first)
+    finally:
+        closures._closure_pose_device = real_device
+        closures.optimize_pose_graph = real_opt
+    main_counts = dict(zip(kernel_names, launched()))
+
+    steps = len(ids)
+    check(vo_counts == (2 * LEVELS * steps, steps, 0, steps),
+          f"eval_vo_sequence over the loop launched {vo_counts} "
+          f"{kernel_names}, want {per_direction} per frame")
+    for ms, counts, places in directions:
+        check(counts == per_direction,
+              f"a verification direction launched {counts} {kernel_names}, "
+              f"want {per_direction}")
+        check(not places, f"_closure_pose_device synchronized with the host "
+                          f"at {places}")
+    n_dir = len(directions)
+    check(main_counts == dict(zip(kernel_names, (
+        v + n_dir * d for v, d in zip(vo_counts, per_direction)))),
+        f"phase 8 launches {main_counts}")
+    dir_ms = [ms for ms, _, _ in directions]
+    log(f"phase 8 posegraph: {LOOP_FRAMES} rendered frames of the loop at "
+        f"{seq.camera.width}x{seq.camera.height} ({render_s:.1f} s on the "
+        f"host), eval_vo_sequence {vo_s * 1e3 / steps:.3f} ms per frame "
+        f"(host clock), ATE {vo['ate_rmse']:.4f} m, RPE "
+        f"{vo['rpe_trans_rmse']:.4f} m / {vo['rpe_rot_rmse_deg']:.3f} deg "
+        f"[{card}]")
+    log(f"phase 8 posegraph: {n_dir} verification directions: "
+        f"{per_direction} {kernel_names} launches and 0 host syncs inside "
+        f"_closure_pose_device each; device call {np.median(dir_ms):.3f} ms "
+        f"median (CUDA events; min {min(dir_ms):.3f}, max {max(dir_ms):.3f}); "
+        f"launches of this phase's main paths {main_counts} [{card}]")
+    for leg, r in legs.items():
+        used = max(r["solves"]) if r["solves"] else 0
+        log(f"phase 8 posegraph: leg {leg}: {len(r['cands'])} proposed "
+            f"{[tuple(c) for c in r['cands']]}, {len(r['found'])} verified "
+            f"{[c[:2] for c in r['found']]} "
+            f"({r['verify_s'] * 1e3 / max(len(r['cands']), 1):.1f} ms per "
+            f"candidate on the host clock, both directions and the host "
+            f"reads, pairs measured for leg 4 taken again), "
+            f"{used} used; backend {r['backend_s']:.2f} s, "
+            f"{len(r['solves'])} solve(s); ATE {r['ate_before']:.4f} -> "
+            f"{r['ate_after']:.4f} m [{card}]")
+        check(len(r["found"]) >= 1, f"leg {leg}: no closure verified")
+    check(legs["4"]["ate_after"] < legs["4"]["ate_before"],
+          f"leg 4: ATE {legs['4']['ate_before']:.4f} -> "
+          f"{legs['4']['ate_after']:.4f} m")
+    check(legs["4b"]["ate_after"] < 0.7 * legs["4b"]["ate_before"],
+          f"leg 4b: ATE {legs['4b']['ate_before']:.4f} -> "
+          f"{legs['4b']['ate_after']:.4f} m, want < 0.7x")
+
+    # ---- card against the CPU's plain versions, on the card's VO poses
+    # and the same numpy RANSAC draws in every direction
+    rng = np.random.default_rng(SEED + 8)
+    draws = {}
+
+    def same_draws(cloud_valid):
+        n = int(cloud_valid.sum())
+        if n not in draws:
+            draws[n] = _numpy_draws(rng, cfg, n)
+        return RansacDraws(*(torch.from_numpy(a).to(cloud_valid.device)
+                             for a in draws[n]))
+
+    # every direction's pose estimate, on the host, device by device
+    estimates = []
+
+    def kept(*args, **kwargs):
+        out = real_device(*args, **kwargs)
+        estimates.append(closures._to_host(out))
+        return out
+
+    real_rng = closures._closure_rng
+    closures._closure_rng = same_draws
+    closures._closure_pose_device = kept
+    rows, diffs = [], []
+    try:
+        t0 = time.perf_counter()
+        # True revisits (ground-truth positions within REVISIT_M): a
+        # verification that locks onto another place is unstable by
+        # nature, and the consistency filter exists for it; so values are
+        # compared on true revisits, decisions on the first rejected
+        # candidate too.
+        accepted = [c[:2] for c in legs["4"]["found"]
+                    if np.linalg.norm(gt[c[0], :3, 3] - gt[c[1], :3, 3])
+                    < REVISIT_M]
+        rejected = [c for c in legs["4"]["cands"]
+                    if c not in [f[:2] for f in legs["4"]["found"]]]
+        for i, j in accepted[:CPU_PAIRS] + rejected[:1]:
+            got, dirs = [], []
+            for d in (dev, cpu):
+                del estimates[:]
+                got.append(kitti_eval.closure_constraint_from_frames(
+                    seq, cfg, ids[i], ids[j], max_features=N, device=d))
+                dirs.append(list(estimates))
+            revisit = (i, j) in accepted
+            per_dir = [(int(a.num_inliers), int(b.num_inliers),
+                        _angle(a.rotation, b.rotation),
+                        float(np.abs(a.translation - b.translation).max()))
+                       for a, b in zip(*dirs)]
+            rows.append(f"{i},{j} ({'revisit' if revisit else 'rejected'}; "
+                        f"accepted {got[0] is not None}/{got[1] is not None};"
+                        f" per direction inliers card/CPU, |dR| rad, |dt| m: "
+                        + "; ".join(f"{a}/{b}, {r:.1e}, {t:.1e}"
+                                    for a, b, r, t in per_dir) + ")")
+            check((got[0] is None) == (got[1] is None),
+                  f"pair {i},{j}: accepted on one device only: {rows[-1]}")
+            if got[0] is not None and revisit:
+                diffs.append((_angle(got[0][0], got[1][0]),
+                              float(np.abs(got[0][1] - got[1][1]).max()),
+                              float(np.abs(got[0][2] - got[1][2]).max())))
+        pairs_s = time.perf_counter() - t0
+    finally:
+        closures._closure_rng = real_rng
+        closures._closure_pose_device = real_device
+    t0 = time.perf_counter()
+    opt_cpu = T.eval.run_pose_graph_backend(
+        poses, legs["4"]["found"], remeasure=lambda a, b: measured[a, b],
+        device=cpu)
+    backend_cpu_s = time.perf_counter() - t0
+    opt = legs["4"]["opt"]
+    extent = float(np.ptp(opt[:, :3, 3], axis=0).max())
+    d_pos = float(np.abs(opt[:, :3, 3] - opt_cpu[:, :3, 3]).max())
+    d_rot = _angle(opt[:, :3, :3], opt_cpu[:, :3, :3])
+    worst = tuple(max(d[k] for d in diffs) if diffs else 0.0 for k in range(3))
+    log(f"phase 8 posegraph: card vs CPU on the card's VO poses with the "
+        f"same numpy RANSAC draws ({pairs_s:.1f} s): {' | '.join(rows)}")
+    log(f"phase 8 posegraph: card vs CPU: {len(diffs)} true revisits "
+        f"accepted on both: Z_R {worst[0]:.2e} rad, Z_t {worst[1]:.2e} "
+        f"m, w6 {worst[2]:.2e} at most; backend ({backend_cpu_s:.1f} s on "
+        f"the CPU): positions {d_pos:.3e} m of a {extent:.1f} m extent, "
+        f"rotations {d_rot:.2e} rad [{card}]")
+    check(worst[0] <= CLOSURE_TOL[0] and worst[1] <= CLOSURE_TOL[1]
+          and worst[2] <= CLOSURE_TOL[2],
+          f"card/CPU closures differ: {worst}, bars {CLOSURE_TOL}")
+    check(d_pos <= BACKEND_TOL[0] * extent and d_rot <= BACKEND_TOL[1],
+          f"card/CPU backend: {d_pos:.3e} m, {d_rot:.2e} rad")
+
+    # ---- the pose graph alone at KITTI-00 scale, each piece of a GN
+    # iteration timed with CUDA events between synchronizations (those
+    # syncs are chip_smoke.py's; the pose graph's own are counted)
+    g = kitti00_graph(dev)
+    stages = {"linearize": [], "chain_blocks": [], "factorize": [],
+              "pcg": []}
+    cg_iters = []
+    wrapped = {"linearize": "_linearize", "chain_blocks": "_chain_blocks",
+               "factorize": "_chain_preconditioner", "pcg": "_pcg"}
+    saved = {name: getattr(pg, name) for name in wrapped.values()}
+
+    def timer(label, fn):
+        def run(*args, **kwargs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            res = fn(*args, **kwargs)
+            b.record()
+            torch.cuda.synchronize()
+            stages[label].append(a.elapsed_time(b))
+            if label == "pcg":
+                cg_iters.append(res[1])
+            return res
+        return run
+
+    for label, name in wrapped.items():
+        setattr(pg, name, timer(label, saved[name]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            out = pg.optimize_pose_graph(g, gn_iters=PG_GN_ITERS,
+                                         cg_iters=PG_CG_ITERS)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        for name, fn in saved.items():
+            setattr(pg, name, fn)
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    places = [p for p in _sync_places(caught) if "chip_smoke.py" not in p]
+    cg_iters = [int(n) for n in cg_iters]
+    sync_bound = math.ceil(PG_CG_ITERS / pg._CG_CHECK)
+    per_gn = len(places) / PG_GN_ITERS
+    check(all(p.startswith("vo/pose_graph.py:") for p in places),
+          f"optimize_pose_graph synchronized at {sorted(set(places))}")
+    check(len(places) <= sync_bound * PG_GN_ITERS,
+          f"optimize_pose_graph: {len(places)} host syncs in {PG_GN_ITERS} "
+          f"GN iterations, want at most {sync_bound} each")
+    total_ms = sum(sum(v) for v in stages.values())
+    loops = [min(PG_CG_ITERS, max(pg._CG_CHECK, pg._CG_CHECK * math.ceil(
+        n / pg._CG_CHECK))) for n in cg_iters]
+    g_cpu = kitti00_graph(cpu)
+    t0 = time.perf_counter()
+    out_cpu = pg.optimize_pose_graph(g_cpu, gn_iters=PG_GN_ITERS,
+                                     cg_iters=PG_CG_ITERS)
+    cpu_s = time.perf_counter() - t0
+    extent = float(np.ptp(g_cpu.t.numpy(), axis=0).max())
+    d_pos = float(np.abs(out.t.cpu().numpy() - out_cpu.t.numpy()).max())
+    d_rot = _angle(out.R.cpu().numpy(), out_cpu.R.numpy())
+    cost0 = float(pg.graph_cost(g))
+    cost1 = float(pg.graph_cost(out))
+    log(f"phase 8 posegraph: KITTI-00 scale, {KITTI00_POSES} poses, "
+        f"{g.edge_i.shape[0]} edges, gn_iters={PG_GN_ITERS}, "
+        f"cg_iters={PG_CG_ITERS}: {total_ms / PG_GN_ITERS:.1f} ms per GN "
+        f"iteration (the stages' CUDA events; {wall_s:.2f} s on the host "
+        f"clock), "
+        f"{per_gn:g} host syncs per GN iteration (bound {sync_bound}), peak "
+        f"device memory {peak_mb:.1f} MB, cost {cost0:.4g} -> {cost1:.4g} "
+        f"[{card}]")
+    log(f"phase 8 posegraph: per GN iteration (ms): linearize "
+        f"{[round(x, 2) for x in stages['linearize']]}, chain blocks "
+        f"{[round(x, 2) for x in stages['chain_blocks']]}, factorization "
+        f"scan {[round(x, 1) for x in stages['factorize']]}, PCG "
+        f"{[round(x, 1) for x in stages['pcg']]} over {cg_iters} iterations "
+        f"to the 1e-4 exit ({loops} run, "
+        f"{[round(m / k, 3) for m, k in zip(stages['pcg'], loops)]} ms per "
+        f"iteration) [{card}]")
+    log(f"phase 8 posegraph: KITTI-00 scale card vs CPU ({cpu_s:.1f} s on "
+        f"the CPU): positions {d_pos:.3e} m of a {extent:.1f} m extent, "
+        f"rotations {d_rot:.2e} rad [{card}]")
+    check(np.isfinite(out.t.cpu().numpy()).all() and cost1 < cost0,
+          f"KITTI-00 scale solve: cost {cost0} -> {cost1}")
+    check(d_pos <= KITTI00_TOL[0] * extent and d_rot <= KITTI00_TOL[1],
+          f"KITTI-00 scale card/CPU: {d_pos:.3e} m, {d_rot:.2e} rad")
+    return main_counts
+
+
 def main() -> int:
     import torch
 
@@ -2145,10 +2592,12 @@ def main() -> int:
     phase_agree(card)
     img_launches = phase_images(card, seq, render_s)
     seq_launches = phase_sequence(card, seq)
+    pg_launches = phase_posegraph(card)
 
     # Per kernel: `launches` of its main paths' runs (phase 4's
-    # feature-fed path, phase 6's image-fed path and phase 7's sequence
-    # evaluators, each counted from 0 just before it; the LK level and the
+    # feature-fed path, phase 6's image-fed path, phase 7's sequence
+    # evaluators and phase 8's loop closure, each counted from 0 just
+    # before it; the LK level and the
     # gate run on the image-fed paths only; the window crop is launched by
     # neither any more, so its count is 0, and phase 3 goes on holding it
     # bit-exact and timing it through its public entry point); ms,
@@ -2167,13 +2616,15 @@ def main() -> int:
          "replaces": REPLACES,
          "launches": (launches["slice_windows"]
                       + img_launches["slice_windows"]
-                      + seq_launches["slice_windows"]),
+                      + seq_launches["slice_windows"]
+                      + pg_launches["slice_windows"]),
          "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
          "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
          "bound_by": "bytes", "library_ms": kern["library_ms"]},
         {"name": "lk_level", "route": "cuda", "source": LK_SOURCE,
          "replaces": REPLACES,
-         "launches": img_launches["lk_level"] + seq_launches["lk_level"],
+         "launches": (img_launches["lk_level"] + seq_launches["lk_level"]
+                      + pg_launches["lk_level"]),
          "max_abs_err": lk["max_abs_err"], "ms": lk["ms"],
          "plain_ms": lk["plain_ms"], "bound_ms": lk["bound_ms"],
          "bound_by": lk["bound_by"], "library_ms": lk["library_ms"]},
@@ -2181,7 +2632,8 @@ def main() -> int:
          "replaces": REPLACES,
          "launches": (launches["gather_neighbors"]
                       + img_launches["gather_neighbors"]
-                      + seq_launches["gather_neighbors"]),
+                      + seq_launches["gather_neighbors"]
+                      + pg_launches["gather_neighbors"]),
          "max_abs_err": gather["max_abs_err"], "ms": gather["ms"],
          "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
          "bound_by": gather["bound_by"],
@@ -2189,7 +2641,8 @@ def main() -> int:
          "indices_form": gather["indices_form"]},
         {"name": "zncc_gate", "route": "cuda", "source": GATE_SOURCE,
          "replaces": REPLACES,
-         "launches": img_launches["zncc_gate"] + seq_launches["zncc_gate"],
+         "launches": (img_launches["zncc_gate"] + seq_launches["zncc_gate"]
+                      + pg_launches["zncc_gate"]),
          "max_abs_err": gate["max_abs_err"], "ms": gate["ms"],
          "plain_ms": gate["plain_ms"], "bound_ms": gate["bound_ms"],
          "bound_by": gate["bound_by"], "library_ms": gate["library_ms"]}]}))

@@ -10,9 +10,11 @@ per caller: the neighbor gather of the depth path
 the acceptance gate (csrc/zncc_gate.cu) of the tracker.  Entry paths:
 `odometry_step` on given feature tracks, and the sequence evaluators
 `eval_vo_sequence` / `eval_depth_sequence` (or the per-frame
-`frame_inputs`) from grey images and lidar scans.  Tensors live on `default_device()` (CUDA device 0) unless
-the caller passes a device.  Importing the package turns TF32 off
-(precision.py).
+`frame_inputs`) from grey images and lidar scans; the loop-closure
+backend (config 4) is in `vo/closures.py` and `vo/pose_graph.py`,
+re-exported through `eval`.  Tensors live on `default_device()` (CUDA
+device 0) unless the caller passes a device.  Importing the package turns
+TF32 off (precision.py).
 """
 
 from . import precision

@@ -1,5 +1,6 @@
-"""Sequence evaluators (counterpart of eval/kitti_eval.py, without the
-loop-closure backend):
+"""Sequence evaluators (counterpart of eval/kitti_eval.py; its
+loop-closure backend lives in vo/closures.py and is re-exported here
+under the reference's names):
 
     grey images + lidar scans  ->  tracker  ->  FrameInput  ->  depth
     association statistics (`eval_depth_sequence`) or poses
@@ -43,6 +44,10 @@ from ..obs.stats import DepthCalcStats, format_stats_report, success_rates
 from ..tracker.frontend import init_tracker, track_frame
 from ..tracks.pipeline import (FrameInput, TrackletDepthState, prime_state,
                                process_frame)
+from ..vo.closures import (  # noqa: F401  (the reference's names)
+    closure_constraint_from_frames, filter_consistent_closures,
+    propose_loop_closures, propose_loop_closures_appearance,
+    run_pose_graph_backend, union_closure_candidates)
 from ..vo.metrics import ate_rmse, rpe_stats
 from ..vo.pipeline import OdometryConfig, OdometryState, odometry_step
 

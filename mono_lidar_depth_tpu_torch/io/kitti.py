@@ -142,6 +142,11 @@ class KittiSequence:
             for p in self.scan_paths:
                 yield read_velodyne(p, max_points)
 
+    def scan(self, index: int, max_points: int) -> tuple[np.ndarray, int]:
+        """Frame `index`'s padded scan ([max_points, 4], count), as
+        `scans` yields it."""
+        return read_velodyne(self.scan_paths[index], max_points)
+
     def _png(self, directory: Path, index: int) -> Optional[np.ndarray]:
         p = directory / f"{index:06d}.png"
         if not p.exists():

@@ -263,8 +263,9 @@ def calibration(spec: SyntheticSpec) -> tuple[np.ndarray, np.ndarray]:
 
 
 class SyntheticSequence:
-    """A rendered sequence in memory, with what the evaluators read of
-    a KITTI sequence: `len`, `scans(max_points)`, `image(i)`,
+    """A rendered sequence in memory, with what the evaluators and the
+    closure verification read of a KITTI sequence: `len`,
+    `scans(max_points)`, `scan(i, max_points)`, `image(i)`,
     `semantic(i)`, `times`, the camera and the lidar→camera transform,
     plus the ground-truth poses."""
 
@@ -293,11 +294,16 @@ class SyntheticSequence:
 
     def scans(self, max_points: int) -> Iterator[tuple[np.ndarray, int]]:
         """Padded scans ([max_points, 4], count) in order."""
-        for raw in self.raw_scans:
-            out = np.zeros((max_points, 4), dtype=np.float32)
-            n = min(len(raw), max_points)
-            out[:n] = raw[:max_points]
-            yield out, n
+        for index in range(len(self)):
+            yield self.scan(index, max_points)
+
+    def scan(self, index: int, max_points: int) -> tuple[np.ndarray, int]:
+        """Frame `index`'s padded scan ([max_points, 4], count)."""
+        raw = self.raw_scans[index]
+        out = np.zeros((max_points, 4), dtype=np.float32)
+        n = min(len(raw), max_points)
+        out[:n] = raw[:max_points]
+        return out, n
 
     def image(self, index: int) -> Optional[np.ndarray]:
         """Grayscale image as [H, W] uint8, or None if absent."""

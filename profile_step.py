@@ -29,7 +29,7 @@ with the same plan (4 warm, 4 timed alone, 3 profiled), its stages being
 `zncc_gate` launch), `detect_features`, and the lane bookkeeping that
 remains.
 
-Last the optional configurations, on the same rendered frames with their
+Then the optional configurations, on the same rendered frames with their
 scans in Velodyne order (chip_smoke.VelodyneOrder) and the tracker's
 outputs made beforehand: `odometry_step` with the defaults and then with
 `do_use_depth_segmentation=True` (stages `segment_rows`, `grow_regions`,
@@ -37,6 +37,13 @@ the two `estimate_depths_from_frame` passes), and `process_frame` with
 the RANSAC plane and then with the semantic plane (stage
 `fit_ground_plane_semantic`), each with the same plan, so that the device
 time and the activities that a configuration adds can be read off.
+
+Last the loop-closure backend: `closure_constraint_from_frames` on the
+first candidate pair of chip_smoke.py's 84-frame loop (the device call of
+each direction and its stages: corners, pyramids, KLT, RANSAC, depths,
+pose GN), and one Gauss-Newton iteration of `optimize_pose_graph` on
+chip_smoke.py's 4541-pose graph (stages: linearization, chain blocks, the
+factorization scan, the scans' products, PCG), with the plan PG_PLAN.
 """
 
 from __future__ import annotations
@@ -49,6 +56,9 @@ import numpy as np
 import chip_smoke as cs
 
 WARM, TIMED, PROFILED = 4, 4, 3
+# The pose graph at KITTI-00 scale: one GN iteration per call, fewer calls
+# (a call launches ~400,000 kernels).
+PG_PLAN = (1, 2, 1)
 # (module, function, label): the stages of one odometry step.
 STAGES = [("tracks", "_ground_plane", "ransac"),
           ("tracks", "rasterize_cloud", "rasterize"),
@@ -68,6 +78,27 @@ OPTION_STAGES = STAGES + [
 # Stages that run inside `depth_pair`: shown, not added to the stages' sum.
 NESTED = {"depths_from_frame", "segment_rows", "grow_regions"}
 
+# The stages of one GN iteration of `optimize_pose_graph`
+# (vo/pose_graph.py): the factorization scan and the scans' products are
+# made inside the preconditioner, the PCG applies it.
+PG_STAGES = [("pg", "_linearize", "linearize"),
+             ("pg", "_chain_blocks", "chain_blocks"),
+             ("pg", "_chain_factor", "factorization_scan"),
+             ("pg", "_scan_plan", "scan_products"),
+             ("pg", "_pcg", "pcg")]
+
+# The stages of one closure verification pair (vo/closures.py): per
+# direction the device call and its pieces; the host reads, the
+# acceptance and the covariance are what remains.
+CLOSURE_STAGES = [("closures", "_closure_pose_device", "closure_device"),
+                  ("closures", "detect_features", "closure_detect"),
+                  ("closures", "build_pyramid", "closure_pyramids"),
+                  ("closures", "track_features", "closure_klt"),
+                  ("closures", "fit_ground_plane_ransac", "closure_ransac"),
+                  ("closures", "estimate_depths", "closure_depths"),
+                  ("closures", "estimate_pose_gn", "closure_pose_gn")]
+NESTED |= {label for *_, label in CLOSURE_STAGES[1:]}
+
 # The stages of one track_frame (all called from tracker/frontend.py).
 TRACK_STAGES = [("frontend", "build_pyramid", "build_pyramid"),
                 ("frontend", "track_features", "track_features"),
@@ -81,10 +112,12 @@ def labelled_stages(stages=STAGES):
     from mono_lidar_depth_tpu_torch.core import depth_estimator as depth
     from mono_lidar_depth_tpu_torch.tracker import frontend
     from mono_lidar_depth_tpu_torch.tracks import pipeline as tracks
+    from mono_lidar_depth_tpu_torch.vo import closures
     from mono_lidar_depth_tpu_torch.vo import pipeline as vo
+    from mono_lidar_depth_tpu_torch.vo import pose_graph as pg
 
     modules = {"tracks": tracks, "vo": vo, "frontend": frontend,
-               "depth": depth}
+               "depth": depth, "pg": pg, "closures": closures}
     saved = []
     for mod_name, fn_name, label in stages:
         mod = modules[mod_name]
@@ -103,13 +136,16 @@ def labelled_stages(stages=STAGES):
             setattr(mod, fn_name, fn)
 
 
-def profile_calls(what: str, call, stages, card: str) -> None:
-    """WARM calls of `call()`, TIMED calls alone under CUDA events, then
-    PROFILED calls under torch.profiler with `stages` labelled; prints
-    the median, the device's busy and idle share and the stage table."""
+def profile_calls(what: str, call, stages, card: str,
+                  plan=(WARM, TIMED, PROFILED)) -> None:
+    """`plan` = (warm, timed, profiled): warm calls of `call()`, timed
+    calls alone under CUDA events, then profiled calls under
+    torch.profiler with `stages` labelled; prints the median, the
+    device's busy and idle share and the stage table."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    WARM, TIMED, PROFILED = plan
     for _ in range(WARM):
         call()
     events = []
@@ -154,7 +190,7 @@ def profile_calls(what: str, call, stages, card: str) -> None:
             continue
         dev_ms = row.device_time_total / 1e3 / PROFILED
         if label in NESTED:
-            label += " (inside depth_pair)"
+            label += " (nested)"
         else:
             staged += dev_ms
         print(f"{label} | {row.count / PROFILED:g} | "
@@ -256,6 +292,35 @@ def main() -> int:
              process_on(True))):
         print()
         profile_calls(what, call, OPTION_STAGES, card)
+
+    # ---- the loop-closure backend: one verification pair at the KITTI
+    # size, and the pose graph alone at KITTI-00 scale
+    from mono_lidar_depth_tpu_torch.vo import closures
+    from mono_lidar_depth_tpu_torch.vo import pose_graph as pg
+
+    loop = T.render_sequence(T.SyntheticSpec(frames=cs.LOOP_FRAMES, step=0.55,
+                                             loop=True), seed=cs.SEED)
+    i, j = closures.propose_loop_closures(loop.gt_poses,
+                                          **cs.LOOP_PROPOSE)[0]
+
+    def verify():
+        closures.closure_constraint_from_frames(
+            loop, sc.cfg, i, j, max_features=sc.cfg.max_features, device=dev)
+
+    print()
+    profile_calls(f"closure_constraint_from_frames, frames {i} and {j} of "
+                  f"the {cs.LOOP_FRAMES}-frame loop (both directions, "
+                  f"{loop.camera.width}x{loop.camera.height})", verify,
+                  CLOSURE_STAGES, card)
+    graph = cs.kitti00_graph(dev)
+
+    def gn_iteration():
+        pg.optimize_pose_graph(graph, gn_iters=1, cg_iters=cs.PG_CG_ITERS)
+
+    print()
+    profile_calls(f"optimize_pose_graph, one GN iteration at "
+                  f"{cs.KITTI00_POSES} poses (cg_iters={cs.PG_CG_ITERS})",
+                  gn_iteration, PG_STAGES, card, plan=PG_PLAN)
     print(card)
     return 0
 

@@ -10,8 +10,9 @@ poses.
 Against the JAX package on the same files (its RANSAC draws differ):
 `eval_depth_sequence` in semantic mode has no draws: every counter within
 1% of the frame-feature total and the success share within 0.01; in
-RANSAC mode the success share within 0.02, every counter within 1% of the
-total and a counter that is zero in one at most 0.1% in the other;
+RANSAC mode, with JAX's draws injected, all 21 counters equal but for
+one lane whose ill-conditioned road-pass depth fails the local gate on
+the other side;
 `eval_vo_sequence`: RPE within 0.01 m / 0.1 deg, ATE within 15% of JAX's; and frame by frame with JAX's draws
 injected, in semantic mode and with region growing: ids equal, poses
 within 5e-3.
@@ -33,13 +34,14 @@ from mono_lidar_depth_tpu.io import synthetic_dataset as jsyn
 from mono_lidar_depth_tpu.io.kitti import KittiSequence as JKittiSequence
 from mono_lidar_depth_tpu.vo import pipeline as jvo
 from mono_lidar_depth_tpu_torch.core.ransac import RansacDraws
+from mono_lidar_depth_tpu_torch.core.result_types import DepthResultType as R
 from mono_lidar_depth_tpu_torch.eval import kitti_eval as teval
 from mono_lidar_depth_tpu_torch.io import synthetic_dataset as tsyn
 from mono_lidar_depth_tpu_torch.io.checkpoint import (load_checkpoint,
                                                       save_checkpoint)
 from mono_lidar_depth_tpu_torch.io.kitti import KittiSequence
 
-from torch_parity import jax_ransac_draws
+from torch_parity import inject_jax_frame_draws, jax_ransac_draws
 
 W, H = 256, 96
 SPEC = dict(frames=25, image_width=W, image_height=H, focal=160.0,
@@ -282,22 +284,35 @@ def test_depth_eval_semantic_matches_jax(disk):
                - want["success_rate_lidar_covered"]) <= 0.01
 
 
-def test_depth_eval_ransac_matches_jax(disk):
+def test_depth_eval_ransac_matches_jax(disk, monkeypatch):
+    """With the JAX package's draws injected (prime_state's PRNGKey(1234)
+    and `_key_chain`'s key of each frame) and both trackers fed the same
+    f32 image, every one of the 21 counters is equal."""
     jseq, tseq = disk
+    cfg = T.DepthEstimatorConfig(**CFG)
+    inject_jax_frame_draws(monkeypatch, tseq, cfg)
     want = jeval.eval_depth_sequence(
         jseq, J.DepthEstimatorConfig(**CFG), max_tracks=256, max_length=6,
         verbose=False)
-    got = T.eval_depth_sequence(tseq, T.DepthEstimatorConfig(**CFG), **KW)
+    got = T.eval_depth_sequence(tseq, cfg, **KW)
     print(f"ransac counters: port {got['counters']}, JAX {want['counters']}")
-    assert abs(got["success_rate_all"] - want["success_rate_all"]) <= 0.02
-    assert abs(got["success_rate_lidar_covered"]
-               - want["success_rate_lidar_covered"]) <= 0.02
-    # an outcome that one run never sees is rare in the other (the draws
-    # differ, so a count of one or two can appear: at most 0.1%)
+    assert got["frames"] == want["frames"] == 24
     g, w = np.asarray(got["counters"]), np.asarray(want["counters"])
-    rare = 1e-3 * want["total_points"]
-    assert (g[w == 0] <= rare).all() and (w[g == 0] <= rare).all()
-    assert np.abs(g - w).max() <= 0.01 * want["total_points"]
+    assert len(g) == 21
+    # One lane (frame 17, the previous-frame feature of lane 16) fails the
+    # local depth gate in both packages, on opposite sides: its primary
+    # depth fails the gate alike, and the road pass then fits a plane to
+    # the same road neighbours, an ill-conditioned fp32 fit (ROADMAP
+    # Queue 3) that gives 10.2573 m in JAX (0.168 m above the gate's upper
+    # edge, 10.0891 m) and 2.8007 m in the port (7.25 m below its lower
+    # edge, 10.0557 m).  Every other counter is equal.
+    local = [int(R.TresholdDepthLocalGreaterMax),
+             int(R.TresholdDepthLocalSmallerMin)]
+    rest = np.ones(21, bool)
+    rest[local] = False
+    np.testing.assert_array_equal(g[rest], w[rest])
+    assert g[local].sum() == w[local].sum()
+    assert np.abs(g[local] - w[local]).max() <= 1
 
 
 def test_vo_eval_matches_jax(disk, full_vo):

@@ -31,7 +31,8 @@ REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "mono_lidar_depth_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "mono_lidar_depth_tpu")
 LAZY_ONLY = ("PIL", "yaml")  # may be imported inside a function only
-SCRIPTS = ["chip_smoke.py", "profile_step.py", "gate_variants.py"]
+SCRIPTS = ["chip_smoke.py", "profile_step.py", "gate_variants.py",
+           "scripts/run_kitti_torch.py"]
 
 
 def _port_modules():
@@ -45,6 +46,10 @@ def test_port_imports_no_jax():
         f"for m in {_port_modules()!r} + ['mono_lidar_depth_tpu_torch', "
         "'chip_smoke', 'profile_step', 'gate_variants']:\n"
         "    importlib.import_module(m)\n"
+        "import importlib.util as u\n"
+        "spec = u.spec_from_file_location('run_kitti_torch', "
+        "'scripts/run_kitti_torch.py')\n"
+        "spec.loader.exec_module(u.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + LAZY_ONLY!r})\n"
         "assert not bad, bad\n"
@@ -86,7 +91,9 @@ def test_new_modules_are_covered():
             "io/synthetic_dataset.py", "vo/metrics.py", "device.py",
             "core/neighbors.py", "core/windows.py", "kernels.py",
             "core/row_segmentation.py", "io/kitti.py", "io/native.py",
-            "io/messages.py", "io/checkpoint.py", "obs/timing.py"} <= have
+            "io/messages.py", "io/checkpoint.py", "obs/timing.py",
+            "vo/pose_graph.py", "vo/closures.py", "conversions/__init__.py",
+            "conversions/convert.py"} <= have
 
 
 @pytest.mark.parametrize("source", sorted(
@@ -221,7 +228,9 @@ def test_no_public_default_is_the_cpu():
                  "eval.kitti_eval.measure_depth_device_time",
                  "io.kitti.KittiSequence.lidar_to_cam",
                  "io.kitti.KittiCalib.lidar_to_cam",
-                 "io.synthetic_dataset.SyntheticSequence.lidar_to_cam"):
+                 "io.synthetic_dataset.SyntheticSequence.lidar_to_cam",
+                 "vo.closures.run_pose_graph_backend",
+                 "vo.closures.closure_constraint_from_frames"):
         assert f"mono_lidar_depth_tpu_torch.{want}" in seen, want
 
 
@@ -304,6 +313,33 @@ def test_host_module_copies_match(module, names):
             f.name for f in dataclasses.fields(jmod.FeatureTracks)]
 
 
+@pytest.mark.parametrize("port_module,ref_module,names", [
+    ("vo.closures", "eval.kitti_eval",
+     ["propose_loop_closures", "_appearance_descriptor",
+      "propose_loop_closures_appearance", "union_closure_candidates",
+      "filter_consistent_closures", "calibrate_closure_weights",
+      "_so3_log", "_so3_exp"]),
+    ("conversions.convert", "conversions.convert",
+     ["add_outlier_flags", "lift_to_depth", "mark_depth_outlier",
+      "newest_pair_points"]),
+])
+def test_closure_and_conversion_copies_match(port_module, ref_module, names):
+    """The closure backend's host numpy and the numpy conversions are the
+    JAX package's code, docstrings aside; the port's eval package
+    re-exports the reference's eval names."""
+    jmod = importlib.import_module(f"mono_lidar_depth_tpu.{ref_module}")
+    tmod = importlib.import_module(f"mono_lidar_depth_tpu_torch.{port_module}")
+    for name in names:
+        assert _source(getattr(tmod, name)) == _source(getattr(jmod, name)), \
+            name
+    from mono_lidar_depth_tpu import eval as jeval
+    from mono_lidar_depth_tpu_torch import eval as teval
+    assert set(jeval.__all__) <= set(teval.__all__)
+    for name in ("closure_constraint_from_frames",
+                 "filter_consistent_closures"):
+        assert hasattr(teval.kitti_eval, name), name
+
+
 def test_kitti_loader_interface_matches():
     """The port's KittiSequence has the JAX loader's public attributes and
     methods, plus what SyntheticSequence offers the evaluators."""
@@ -314,7 +350,7 @@ def test_kitti_loader_interface_matches():
         return {n for n in vars(cls) if not n.startswith("_")}
 
     assert public(jkitti.KittiSequence) <= public(tkitti.KittiSequence)
-    assert {"scans", "image", "semantic", "lidar_to_cam"} <= (
+    assert {"scans", "scan", "image", "semantic", "lidar_to_cam"} <= (
         public(tkitti.KittiSequence) & public(SyntheticSequence))
     for name in ("_load_poses", "scans"):
         assert _source(getattr(tkitti.KittiSequence, name)) == _source(

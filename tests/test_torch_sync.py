@@ -214,6 +214,13 @@ def test_update_tracks_seed_length(T_slots, M):
                             "process_sequence"]),
     ("eval/kitti_eval.py", ["_scan_depth_chunk", "_scan_vo_chunk",
                             "_chunk_frame", "_frame_rng"]),
+    ("vo/pose_graph.py", ["_weight6", "_edge_residual", "_edge_lin",
+                          "_affine_combine", "_scan_plan", "_scan_apply",
+                          "_affine_scan", "_inv6_scaled", "_chain_factor",
+                          "_chain_preconditioner", "_linearize", "_scatter",
+                          "_chain_blocks", "_gn_step", "optimize_pose_graph",
+                          "graph_cost", "sequential_edges"]),
+    ("vo/closures.py", ["_closure_pose_device", "_closure_rng"]),
 ])
 def test_no_read_back_in_the_new_per_frame_code(path, functions):
     """Region growing, the semantic plane and the chunk runners read
@@ -240,6 +247,24 @@ def test_no_read_back_in_the_new_per_frame_code(path, functions):
                     assert arg.startswith(("R.", "last", "W", "H", '"', "'")), (
                         fn.name, arg)
     assert checked >= (4 if functions is None else len(functions))
+
+
+def test_pcg_reads_the_card_only_for_its_exit_flag():
+    """The pose graph's one host read: `bool(active)` in `_pcg`, taken
+    every `_CG_CHECK` iterations; nothing else there reads back."""
+    tree = ast.parse((PKG / "vo/pose_graph.py").read_text())
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == "_pcg")
+    reads = []
+    for node in ast.walk(fn):
+        if isinstance(node, ast.Call):
+            name = ast.unparse(node.func)
+            if name.rsplit(".", 1)[-1] in ("item", "tolist", "cpu", "numpy") \
+                    or name in ("bool", "int", "float"):
+                reads.append(ast.unparse(node))
+    assert reads == ["bool(active)"]
+    src = ast.unparse(fn)
+    assert "k % _CG_CHECK == 0" in src
 
 
 def test_intrinsics_are_made_once_per_camera_and_device():

@@ -49,6 +49,28 @@ def jax_ransac_draws(key, valid, subsample: int, num_hypotheses: int):
             torch.from_numpy(np.asarray(picks).astype(np.int64)))
 
 
+def inject_jax_frame_draws(mp, seq, cfg) -> None:
+    """Make the port's sequence evaluators (eval/kitti_eval.py) draw the
+    JAX package's RANSAC samples: prime_state's PRNGKey(1234) and frame
+    f's key of `_key_chain`, drawn over each frame's cloud; and give the
+    tracker the JAX package's f32 image (XLA multiplies by 1/255, eager
+    PyTorch divides).  `mp` is a pytest MonkeyPatch."""
+    from mono_lidar_depth_tpu.eval import kitti_eval as jeval
+    from mono_lidar_depth_tpu_torch.core.ransac import RansacDraws
+    from mono_lidar_depth_tpu_torch.eval import kitti_eval as teval
+
+    keys = [jax.random.PRNGKey(1234)] + list(jeval._key_chain(len(seq)))
+    draws = [RansacDraws(*jax_ransac_draws(
+        key, np.arange(cfg.max_points) < count, cfg.ransac_subsample_points,
+        cfg.ransac_num_hypotheses))
+        for key, (_, count) in zip(keys, seq.scans(cfg.max_points))]
+    mp.setattr(teval, "_frame_seed", lambda seed, f: f)
+    mp.setattr(teval, "_frame_rng", lambda f, device: RansacDraws(
+        *(x.to(device) for x in draws[f])))
+    mp.setattr(teval, "_dev_img", lambda img: torch.from_numpy(
+        np.array(jeval._dev_img(jnp.asarray(img.numpy())))))
+
+
 def assert_trees_equal(got, want, path="", atol=0.0, rtol=0.0):
     """Field-by-field comparison of a port tree (numpy leaves) and a JAX
     tree (numpy leaves) with the same field names."""
