@@ -68,6 +68,18 @@ Phases, each printed on its own lines:
                (4541 poses): ms per GN iteration and per stage, host syncs
                per GN iteration (at most one per 8 PCG iterations), peak
                memory, and the card against the CPU.
+  9. dist    — the distributed layer (mono_lidar_depth_tpu_torch/dist/) at
+               the KITTI shapes of __graft_entry_torch__.dryrun_multichip:
+               DIST_RANKS spawned ranks sharing the card over gloo run the
+               frame-parallel association (one frame and exactly one
+               `gather_neighbors` launch per rank; codes and counters equal
+               to the single-process run to the bit), the landmark-sharded
+               BA and the edge-sharded 4541-pose graph (within the bars of
+               the single-process runs, the same PCG iterations on every
+               rank); then a world of one NCCL rank, whose distributed BA
+               and pose graph equal group=None to the bit; ms, all_reduce
+               calls and host syncs per BA and per GN iteration, single
+               against distributed.
 
 The kernels' JSON record and the card line (nvidia-smi's name and power
 limit) come just before the last line, which is {"ok": true, "device":
@@ -164,6 +176,20 @@ PG_GN_ITERS, PG_CG_ITERS = 4, 250
 KITTI00_TOL = (1e-6, 2e-4)
 KITTI_CAMERA = dict(width=1226, height=370, focal_length=707.0, cx=601.8,
                     cy=183.1)
+# Phase 9: the three sharded programs of __graft_entry_torch__'s dryrun at
+# its KITTI shapes, on DIST_RANKS gloo ranks sharing the card (one frame
+# and 1,024 landmarks each) and on one NCCL rank; BA against the single-
+# process run at tests/test_dist.py's bars (final cost rtol, R, t,
+# landmarks), the pose graph at KITTI00_TOL.  The dryrun's observations are
+# exact, so its final BA cost is near 0 (2.5e-5 from 1.19e5) and rounding
+# noise relative to itself: the cost bar is rtol or DIST_BA_COST_ATOL of
+# the initial cost, whichever is larger.
+DIST_RANKS = 2
+DIST_BA_ITERS = 3
+DIST_PG = dict(gn_iters=2, cg_iters=10)
+DIST_BA_TOL = (1e-3, 1e-4, 1e-3, 1e-2)
+DIST_BA_COST_ATOL = 1e-9
+DIST_TIMED_ITERS = 5  # BA iterations per timing
 R_LC = np.array([[0, -1, 0], [0, 0, -1], [1, 0, 0]], dtype=np.float32)
 T_LC = np.array([0.0, -0.08, 0.27], dtype=np.float32)
 
@@ -1651,29 +1677,82 @@ def phase_images(card: str, seq, render_s: float) -> dict:
 
 # --------------------------------------------------------------- phase 7
 
-class VelodyneOrder:
-    """A rendered sequence whose scans run in Velodyne order.
+def _span_gap(a, b) -> str:
+    """The relative gaps between two triangles' spans (corners [3, 3]) as
+    `max_spanning_triangle` ranks them: the squared longest side, then the
+    third corner's sum of squared legs; a gap at rounding level is a tie
+    that either device may break either way."""
+    def spans(c):
+        c = np.asarray(c, np.float64)
+        return (((c[0] - c[1]) ** 2).sum(),
+                ((c[2] - c[0]) ** 2).sum() + ((c[2] - c[1]) ** 2).sum())
 
-    The renderer sweeps every beam left to right, so image-x increases
-    within a row and never jumps up, and `segment_rows` finds one or two
-    rows in such a scan.  Reversed, a scan has what the segmenter expects:
-    image-x decreasing within a row and a jump up between rows.  Same
-    points, same images, same poses."""
+    gaps = [abs(x - y) / max(x, y, 1e-30) for x, y in zip(spans(a), spans(b))]
+    return f"{gaps[0]:.1e}/{gaps[1]:.1e}"
 
-    def __init__(self, seq):
-        self._seq = seq
 
-    def __getattr__(self, name):
-        return getattr(self._seq, name)
+class _GateMargins:
+    """While open, records what the primary path of the depth cascade
+    (its first histogram and `_segment_depth` call of a `process_frame`)
+    decided on, per lane: the window's neighbor count, the histogram
+    segment's point count and lower bin border, the planarity score (the
+    least cross-product norm of the triangle's unit edges) minus its
+    threshold, the depth's distance inside the local interval [min z -
+    tol, max z + tol] of the segment (negative: outside), and the
+    triangle's corners."""
 
-    def __len__(self):
-        return len(self._seq)
+    def __enter__(self):
+        import torch
+        from mono_lidar_depth_tpu_torch.core import depth_estimator as DE
+        from mono_lidar_depth_tpu_torch.core import planefit as PF
 
-    def scans(self, max_points):
-        for xyzi, n in self._seq.scans(max_points):
-            out = np.zeros_like(xyzi)
-            out[:n] = xyzi[:n][::-1]
-            yield out, n
+        self.module, self.rec = DE, {}
+        self.real = (DE.check_planar, DE._apply_depth_gates,
+                     DE.filter_points_min_dist_blob)
+        real_planar, real_gates, real_hist = self.real
+
+        def hist(z, mask, *args):
+            out = real_hist(z, mask, *args)
+            if "seg" not in self.rec:
+                self.rec["neighbors"] = mask.sum(-1).cpu().numpy()
+                self.rec["seg"] = out.seg_mask.sum(-1).cpu().numpy()
+                self.rec["bin"] = out.lower.cpu().numpy()
+            return out
+
+        def planar(corners, threshold):
+            if "planar" not in self.rec:
+                c1, c2, c3 = corners[:, 0], corners[:, 1], corners[:, 2]
+                e1, e2 = PF._unit(c2 - c1), PF._unit(c3 - c1)
+                e3 = PF._unit(c3 - c2)
+                score = torch.stack([PF.norm3(PF.cross3(a, b)) for a, b in
+                                     ((e1, e2), (e1, e3), (e2, e3))]).amin(0)
+                self.rec["planar"] = (score - threshold).cpu().numpy()
+                self.rec["corners"] = corners.cpu().numpy()
+            return real_planar(corners, threshold)
+
+        def gates(cfg, depth, neighbor_depths, seg_mask):
+            if "local" not in self.rec:
+                inf = float("inf")
+                lo = torch.where(seg_mask, neighbor_depths, inf).amin(-1)
+                hi = torch.where(seg_mask, neighbor_depths, -inf).amax(-1)
+                tol = ((hi - lo) * cfg.treshold_depth_local_value
+                       if cfg.treshold_depth_local_valuetype == 1
+                       else cfg.treshold_depth_local_value)
+                self.rec["local"] = torch.minimum(
+                    depth - (lo - tol), hi + tol - depth).cpu().numpy()
+            return real_gates(cfg, depth, neighbor_depths, seg_mask)
+
+        (DE.check_planar, DE._apply_depth_gates,
+         DE.filter_points_min_dist_blob) = planar, gates, hist
+        return self
+
+    def __exit__(self, *exc):
+        (self.module.check_planar, self.module._apply_depth_gates,
+         self.module.filter_points_min_dist_blob) = self.real
+
+    def of_new_frame(self, n: int) -> dict:
+        """The new frame's lanes: the last n of the pair's joined lanes."""
+        return {k: v[-n:] for k, v in self.rec.items()}
 
 
 def _sync_places(caught) -> list:
@@ -1707,6 +1786,7 @@ def phase_sequence(card: str, seq) -> dict:
     from mono_lidar_depth_tpu_torch.eval import kitti_eval
     from mono_lidar_depth_tpu_torch.io import native
     from mono_lidar_depth_tpu_torch.io.kitti import KittiSequence, pad_cloud
+    from mono_lidar_depth_tpu_torch.io.synthetic_dataset import VelodyneOrder
     from mono_lidar_depth_tpu_torch.tracker import klt
     from mono_lidar_depth_tpu_torch.tracks.pipeline import (
         _frame_ground_plane, _ground_plane)
@@ -2030,22 +2110,26 @@ def phase_sequence(card: str, seq) -> dict:
             state = state._replace(tracklets=T.prime_state(
                 c_, cam, l2c_d, state.tracklets, on(prime[0][0]),
                 on(prime[0][1]), rd(0), semantic=on(prime[0][2])))
-            poses, codes, depths = [], [], []
+            poses, codes, depths, margins = [], [], [], []
             for k, f in enumerate(inputs, 1):
                 frame = T.FrameInput(*(on(x) for x in f[:7]), rng=rd(k),
                                      semantic=on(f.semantic))
-                _, dep, cod = T.process_frame(c_, cam, l2c_d,
-                                              state.tracklets, frame)
+                with _GateMargins() as gates:
+                    _, dep, cod = T.process_frame(c_, cam, l2c_d,
+                                                  state.tracklets, frame)
+                margins.append(gates.of_new_frame(N))
                 state, R_cw, t_cw, _ = T.odometry_step(c_, ocfg, cam, l2c_d,
                                                        state, frame)
                 poses.append((R_cw.cpu().numpy(), t_cw.cpu().numpy()))
                 codes.append(cod.cpu().numpy())
                 depths.append(dep.cpu().numpy())
-            return poses, np.concatenate(codes), np.concatenate(depths)
+            return (poses, np.concatenate(codes), np.concatenate(depths),
+                    {key: np.concatenate([m[key] for m in margins])
+                     for key in margins[0]})
 
         t0 = time.perf_counter()
-        g_poses, g_codes, g_depths = run(dev, l2c)
-        c_poses, c_codes, c_depths = run(cpu, l2c_cpu)
+        g_poses, g_codes, g_depths, g_margin = run(dev, l2c)
+        c_poses, c_codes, c_depths, c_margin = run(cpu, l2c_cpu)
         agree = float(np.mean(g_codes == c_codes))
         both = (g_codes == c_codes) & (c_depths > 0)
         rel_all = np.abs(g_depths - c_depths) / np.maximum(c_depths, 1e-30)
@@ -2082,6 +2166,28 @@ def phase_sequence(card: str, seq) -> dict:
             return_counts=True)
         confusion = {f"{R(int(a)).name}/{R(int(b)).name}": int(n)
                      for (a, b), n in zip(pairs, pair_counts)}
+        lanes = [
+            f"{i // N}:{i % N} {R(int(g_codes[i])).name}/"
+            f"{R(int(c_codes[i])).name} neighbors "
+            f"{g_margin['neighbors'][i]}/{c_margin['neighbors'][i]} segment "
+            f"{g_margin['seg'][i]}/{c_margin['seg'][i]} from "
+            f"{g_margin['bin'][i]:.2f}/{c_margin['bin'][i]:.2f} m "
+            f"planar {g_margin['planar'][i]:+.2e}/"
+            f"{c_margin['planar'][i]:+.2e} local "
+            f"{g_margin['local'][i]:+.2e}/{c_margin['local'][i]:+.2e} m "
+            f"corners {np.abs(g_margin['corners'][i] - c_margin['corners'][i]).max():.1e} m "
+            f"spans {_span_gap(g_margin['corners'][i], c_margin['corners'][i])}"
+            for i in np.flatnonzero(differ)]
+        log(f"phase 7 sequence: {name}, each differing lane (frame:lane "
+            f"card/CPU code; card/CPU the primary path's window neighbors, "
+            f"histogram segment points and its lower bin border; card/CPU "
+            f"margins to the primary path's "
+            f"gates: planarity score minus its threshold, the depth's "
+            f"distance inside the local interval; how far apart the two "
+            f"devices' triangles are, and the relative gaps between the "
+            f"two triangles' spans, the two numbers max_spanning_triangle "
+            f"maximizes: the squared longest side, then the third corner's "
+            f"sum of squared legs): {' | '.join(lanes)} [{card}]")
         log(f"phase 7 sequence: card vs CPU plain versions, {name}, {steps} "
             f"frames ({time.perf_counter() - t0:.1f} s): codes agree "
             f"{agree:.5f} ({int(differ.sum())} of {differ.size} differ, "
@@ -2172,34 +2278,13 @@ def _angle(Ra, Rb) -> float:
 
 
 def kitti00_graph(device, seed: int = SEED):
-    """The KITTI-00-scale pose graph of __graft_entry__.py, built with
-    numpy: KITTI00_POSES poses on a straight chain (identity rotations,
-    300 m x 500 m), its odometry edges, 20 closures of span 301, and
-    positions perturbed by 0.05 m.  Pose 0 is fixed."""
-    import torch
-    from mono_lidar_depth_tpu_torch.vo.pose_graph import PoseGraph
+    """The KITTI-00-scale pose graph of __graft_entry__.py (4541 poses on a
+    straight chain, 20 closures of span 301, positions perturbed by 0.05
+    m, pose 0 fixed), built with numpy from `seed`."""
+    import __graft_entry_torch__ as G
 
-    rng = np.random.default_rng(seed)
-    n = KITTI00_POSES
-    ang = np.linspace(0, 1.0, n).astype(np.float32)
-    R = np.tile(np.eye(3, dtype=np.float32), (n, 1, 1))
-    t = np.stack([ang * 300, np.zeros(n, np.float32), ang * 500], 1)
-    ci = np.linspace(0, n - 302, 20).astype(np.int64)
-    cj = ci + 301
-    ei = np.concatenate([np.arange(n - 1), ci])
-    ej = np.concatenate([np.arange(1, n), cj])
-    Z_R = np.einsum("nij,nik->njk", R[ei], R[ej]).astype(np.float32)
-    Z_t = np.einsum("nij,ni->nj", R[ei], t[ej] - t[ei]).astype(np.float32)
-    E = len(ei)
-
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    return PoseGraph(
-        R=dev(R), t=dev(t + rng.normal(0, 0.05, t.shape).astype(np.float32)),
-        edge_i=dev(ei), edge_j=dev(ej), Z_R=dev(Z_R), Z_t=dev(Z_t),
-        edge_weight=dev(np.ones(E, np.float32)),
-        edge_valid=dev(np.ones(E, bool)), fixed=dev(np.arange(n) == 0))
+    return G.kitti00_graph(np.random.default_rng(seed), device,
+                           KITTI00_POSES)
 
 
 def phase_posegraph(card: str) -> dict:
@@ -2549,9 +2634,285 @@ def phase_posegraph(card: str) -> dict:
     return main_counts
 
 
+# --------------------------------------------------------------- phase 9
+
+def dist_rank(rank: int, n: int, device, single: bool) -> dict:
+    """One rank of phase 9, spawned by `dist.launch.run_ranks`: the three
+    sharded programs on the same inputs in every world (the frames, BA
+    problem and graph of __graft_entry_torch__ from SEED), each timed with
+    its all_reduce calls and host syncs.  In a world of one (`single`) the
+    BA and the pose graph also run with group=None, and everything runs in
+    deterministic mode (the pose graph's `index_add_` otherwise sums in
+    another order on every run), so the two forms can be held to the bit.
+    Returns numpy arrays and numbers."""
+    import os
+    import warnings
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+    import torch.distributed as tdist
+    import __graft_entry_torch__ as G
+    from mono_lidar_depth_tpu_torch.core import neighbors
+    from mono_lidar_depth_tpu_torch.dist import (
+        distributed_ba, distributed_pose_graph, make_mesh,
+        sharded_depth_association)
+    from mono_lidar_depth_tpu_torch.dist.sharded import _landmark_block
+    from mono_lidar_depth_tpu_torch.vo import pose_graph as pg
+    from mono_lidar_depth_tpu_torch.vo.ba import ba_iteration, run_ba
+
+    if single:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg = G._kitti_cfg()
+    cam, l2c = G._calib(cfg, device)
+    rng = np.random.default_rng(SEED)
+    frames = G._frame_arrays(cfg, rng, DIST_RANKS, device)
+    problem = G.ba_problem(cam, 1024 * DIST_RANKS, rng, device)
+    graph = G.kitti00_graph(rng, device, KITTI00_POSES)
+    mesh = make_mesh(n, device=device)
+    mesh_lm = make_mesh(n, landmark_parallel=n, device=device)
+
+    calls = [0]
+    real_all_reduce = tdist.all_reduce
+
+    def counting(*args, **kwargs):
+        calls[0] += 1
+        return real_all_reduce(*args, **kwargs)
+
+    def measured(fn, per: int):
+        """(fn(), host ms per unit to the end of the device work,
+        all_reduce calls per unit, host syncs per unit)."""
+        torch.cuda.synchronize()
+        calls[0] = 0
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return res, ms / per, calls[0] / per, len(_sync_places(caught)) / per
+
+    def host(x):
+        return x.cpu().numpy()
+
+    out = dict(backend=tdist.get_backend())
+    tdist.all_reduce = counting
+    counts = []
+    real_pcg = pg._pcg
+
+    def counted_pcg(*args, **kwargs):
+        x, iterations = real_pcg(*args, **kwargs)
+        counts.append(iterations)
+        return x, iterations
+
+    pg._pcg = counted_pcg
+    try:
+        if not single:  # ---- the association, counts from 0
+            step = sharded_depth_association(cfg, cam, l2c, mesh)
+            draws = G.frame_draws(cfg, frames[1])
+            neighbors.launches = 0
+            (d, c, cnt), ms, ar, sy = measured(
+                lambda: step(*frames, draws), 1)
+            out["assoc"] = dict(depths=host(d), codes=host(c),
+                                counters=host(cnt), ms=ms, all_reduce=ar,
+                                syncs=sy, launches=neighbors.launches)
+
+        # ---- BA: the solve, then DIST_TIMED_ITERS iterations timed
+        res = distributed_ba(cam, mesh_lm, iters=DIST_BA_ITERS)(problem)
+        out["ba"] = (host(res.problem.R), host(res.problem.t),
+                     host(res.problem.landmarks), float(res.initial_cost),
+                     float(res.final_cost))
+        block = _landmark_block(problem, mesh_lm)
+
+        def iterate(group, pb):
+            for _ in range(DIST_TIMED_ITERS):
+                pb = ba_iteration(cam, pb, 2.0, 1.0, 0.5, 1e-4, group)
+            return pb
+
+        group = mesh_lm.get_group("landmark")
+        iterate(group, block)
+        out["ba_iter"] = measured(lambda: iterate(group, block),
+                                  DIST_TIMED_ITERS)[1:]
+        if single:
+            one = run_ba(cam, problem, iters=DIST_BA_ITERS)
+            out["ba_single"] = (host(one.problem.R), host(one.problem.t),
+                                host(one.problem.landmarks),
+                                float(one.initial_cost),
+                                float(one.final_cost))
+            iterate(None, problem)
+            out["ba_iter_single"] = measured(lambda: iterate(None, problem),
+                                             DIST_TIMED_ITERS)[1:]
+
+        # ---- the pose graph
+        solve = distributed_pose_graph(mesh, **DIST_PG)
+        del counts[:]
+        g, *m = measured(lambda: solve(graph), DIST_PG["gn_iters"])
+        out["pg"] = (host(g.R), host(g.t), [int(k) for k in counts], *m)
+        out["pg_cost"] = (float(pg.graph_cost(graph)), float(pg.graph_cost(g)))
+        # one all_reduce of the matvec's [N, 6] sum alone, 20 in a row
+        y, frame_group = graph.t.new_ones((KITTI00_POSES, 6)), mesh.get_group(
+            "frame")
+        out["ar"] = measured(lambda: [tdist.all_reduce(y, group=frame_group)
+                                      for _ in range(20)], 20)[1:]
+        if single:
+            del counts[:]
+            g, *m = measured(lambda: pg.optimize_pose_graph(graph, **DIST_PG),
+                             DIST_PG["gn_iters"])
+            out["pg_single"] = (host(g.R), host(g.t),
+                                [int(k) for k in counts], *m)
+    finally:
+        tdist.all_reduce = real_all_reduce
+        pg._pcg = real_pcg
+    return out
+
+
+def phase_dist(card: str) -> dict:
+    """The distributed layer at the dryrun's KITTI shapes: DIST_RANKS gloo
+    ranks on the one card against the single-process runs, and a world of
+    one NCCL rank equal to group=None to the bit."""
+    import torch
+    import __graft_entry_torch__ as G
+    from mono_lidar_depth_tpu_torch import estimate_depths
+    from mono_lidar_depth_tpu_torch.core.ransac import fit_ground_plane_ransac
+    from mono_lidar_depth_tpu_torch.dist.launch import run_ranks
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    # the single-process association on the card, frame by frame
+    cfg = G._kitti_cfg()
+    cam, l2c = G._calib(cfg, dev)
+    frames = G._frame_arrays(cfg, np.random.default_rng(SEED), DIST_RANKS,
+                             dev)
+    draws = G.frame_draws(cfg, frames[1])
+    codes, depths, counters = [], [], 0
+    for b in range(DIST_RANKS):
+        gp = fit_ground_plane_ransac(
+            frames[0][b], frames[1][b], sub_idx=draws.sub_idx[b],
+            picks=draws.picks[b],
+            distance_threshold=cfg.ransac_plane_distance_treshold,
+            num_hypotheses=cfg.ransac_num_hypotheses,
+            subsample=cfg.ransac_subsample_points,
+            use_refinement=cfg.ransac_plane_use_refinement,
+            refinement_threshold=cfg.ransac_plane_refinement_treshold)
+        est = estimate_depths(cfg, cam, l2c, frames[0][b], frames[1][b],
+                              frames[2][b], frames[3][b], gp)
+        codes.append(est.codes.cpu().numpy())
+        depths.append(est.depths.cpu().numpy())
+        counters = counters + est.counters.cpu().numpy()
+    codes, depths = np.stack(codes), np.stack(depths)
+
+    t0 = time.perf_counter()
+    one, = run_ranks(dist_rank, 1, (True,), timeout=600.0)
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = run_ranks(dist_rank, DIST_RANKS, (False,), timeout=600.0)
+    ranks_s = time.perf_counter() - t0
+
+    # ---- a world of one NCCL rank: group=None to the bit
+    check(one["backend"] == "nccl", f"world of one ran {one['backend']}")
+    for name, a, b in (("BA", one["ba"], one["ba_single"]),
+                       ("pose graph", one["pg"][:2], one["pg_single"][:2])):
+        check(all(np.array_equal(x, y) for x, y in zip(a, b)),
+              f"NCCL world of one: distributed {name} differs from "
+              f"group=None")
+    check(one["pg"][2] == one["pg_single"][2],
+          f"PCG iterations {one['pg'][2]} against {one['pg_single'][2]}")
+
+    # ---- DIST_RANKS gloo ranks against the single-process runs
+    check(all(r["backend"] == "gloo" for r in ranks),
+          f"{DIST_RANKS} ranks on one card ran {[r['backend'] for r in ranks]}")
+    a = [r["assoc"] for r in ranks]
+    launches = [x["launches"] for x in a]
+    check(launches == [1] * DIST_RANKS,
+          f"gather_neighbors launches per rank {launches}, want 1 (one "
+          f"frame each)")
+    check(np.array_equal(np.concatenate([x["codes"] for x in a]), codes),
+          "sharded association codes differ from the single-process run")
+    check(all(np.array_equal(x["counters"], counters) for x in a),
+          f"sharded counters {[x['counters'] for x in a]} != {counters}")
+    d_depth = float(np.abs(np.concatenate([x["depths"] for x in a])
+                           - depths).max())
+    check(int(counters.sum()) == DIST_RANKS * cfg.max_features,
+          f"counters sum to {int(counters.sum())}")
+
+    R, t, _, c0, c1 = ranks[0]["ba"]
+    for r in ranks[1:]:
+        check(np.array_equal(r["ba"][0], R) and np.array_equal(r["ba"][1], t)
+              and r["ba"][3:] == (c0, c1), "BA poses differ between ranks")
+    lm = np.concatenate([r["ba"][2] for r in ranks])
+    sR, st, slm, sc0, sc1 = one["ba_single"]
+    ba_err = (abs(c1 - sc1) / max(abs(sc1), DIST_BA_COST_ATOL / DIST_BA_TOL[0]
+                                  * sc0),
+              float(np.abs(R - sR).max()), float(np.abs(t - st).max()),
+              float(np.abs(lm - slm).max()))
+    check(ba_err[0] <= DIST_BA_TOL[0] and ba_err[1] <= DIST_BA_TOL[1]
+          and ba_err[2] <= DIST_BA_TOL[2] and ba_err[3] <= DIST_BA_TOL[3],
+          f"distributed BA against single: {ba_err}, bars {DIST_BA_TOL}")
+    check(np.isfinite(c1) and c1 < c0, f"BA cost {c0} -> {c1}")
+
+    gR, gt, pcg = ranks[0]["pg"][:3]
+    for r in ranks[1:]:
+        check(r["pg"][2] == pcg, f"PCG iterations differ between ranks: "
+                                 f"{[x['pg'][2] for x in ranks]}")
+        check(np.array_equal(r["pg"][0], gR) and np.array_equal(r["pg"][1],
+                                                                gt),
+              "pose-graph poses differ between ranks")
+    extent = float(np.ptp(one["pg_single"][1], axis=0).max())
+    d_pos = float(np.abs(gt - one["pg_single"][1]).max())
+    d_rot = _angle(gR, one["pg_single"][0])
+    cost0, cost1 = ranks[0]["pg_cost"]
+    check(np.isfinite(gt).all() and cost1 < cost0,
+          f"distributed pose graph cost {cost0} -> {cost1}")
+    check(d_pos <= KITTI00_TOL[0] * extent and d_rot <= KITTI00_TOL[1],
+          f"distributed pose graph against single: {d_pos:.3e} m of "
+          f"{extent:.1f} m, {d_rot:.2e} rad")
+
+    def row(ms, ar, sy):
+        return f"{ms:.3f} ms, {ar:g} all_reduce, {sy:g} host syncs"
+
+    x = a[0]
+    log(f"phase 9 dist: {DIST_RANKS} gloo ranks on the card "
+        f"({ranks_s:.1f} s, spawn included): association of "
+        f"{DIST_RANKS} frames at {cfg.max_points} points / "
+        f"{cfg.max_features} features / {cfg.image_width}x"
+        f"{cfg.image_height}, 1 frame per rank: rank 0's first call "
+        f"(lazy initialization included) {row(x['ms'], x['all_reduce'], x['syncs'])}, "
+        f"gather_neighbors launches per rank {launches}; codes and counters "
+        f"equal to the single-process run, depths within {d_depth:.1e} "
+        f"[{card}]")
+    log(f"phase 9 dist: BA K=8, L={lm.shape[0]} ({lm.shape[0] // DIST_RANKS} "
+        f"per rank), {DIST_BA_ITERS} iterations: cost {c0:.6g} -> {c1:.6g}; "
+        f"against single: cost {ba_err[0]:.1e} rel, R {ba_err[1]:.1e}, t "
+        f"{ba_err[2]:.1e}, landmarks {ba_err[3]:.1e}; per iteration: single "
+        f"{row(*one['ba_iter_single'])} | NCCL world of 1 "
+        f"{row(*one['ba_iter'])} | {DIST_RANKS} gloo ranks "
+        f"{row(*ranks[0]['ba_iter'])} [{card}]")
+    log(f"phase 9 dist: pose graph {KITTI00_POSES} poses, "
+        f"gn_iters={DIST_PG['gn_iters']}, cg_iters={DIST_PG['cg_iters']}: "
+        f"cost {cost0:.4g} -> {cost1:.4g}, PCG iterations {pcg} on every "
+        f"rank; against single: positions {d_pos:.3e} m of {extent:.1f} m, "
+        f"rotations {d_rot:.2e} rad; per GN iteration: single "
+        f"{row(*one['pg_single'][3:])} (deterministic mode) | NCCL world "
+        f"of 1 {row(*one['pg'][3:])} (deterministic mode) | {DIST_RANKS} "
+        f"gloo ranks {row(*ranks[0]['pg'][3:])}; one all_reduce of the "
+        f"matvec's [{KITTI00_POSES}, 6] alone: NCCL world of 1 "
+        f"{one['ar'][0]:.3f} ms, {DIST_RANKS} gloo ranks "
+        f"{ranks[0]['ar'][0]:.3f} ms (the sync debug mode sees no host sync "
+        f"in gloo: it stages CUDA tensors through the host in its own "
+        f"thread, and the caller blocks until they are back) [{card}]")
+    log(f"phase 9 dist: NCCL world of 1 ({one_s:.1f} s, spawn included): "
+        f"distributed_ba and distributed_pose_graph equal group=None to the "
+        f"bit; phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"gather_neighbors": sum(launches)}
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; there is no CPU run",
               file=sys.stderr)
@@ -2593,11 +2954,12 @@ def main() -> int:
     img_launches = phase_images(card, seq, render_s)
     seq_launches = phase_sequence(card, seq)
     pg_launches = phase_posegraph(card)
+    dist_launches = phase_dist(card)
 
     # Per kernel: `launches` of its main paths' runs (phase 4's
     # feature-fed path, phase 6's image-fed path, phase 7's sequence
-    # evaluators and phase 8's loop closure, each counted from 0 just
-    # before it; the LK level and the
+    # evaluators, phase 8's loop closure and phase 9's ranks, each counted
+    # from 0 just before it; the LK level and the
     # gate run on the image-fed paths only; the window crop is launched by
     # neither any more, so its count is 0, and phase 3 goes on holding it
     # bit-exact and timing it through its public entry point); ms,
@@ -2633,7 +2995,8 @@ def main() -> int:
          "launches": (launches["gather_neighbors"]
                       + img_launches["gather_neighbors"]
                       + seq_launches["gather_neighbors"]
-                      + pg_launches["gather_neighbors"]),
+                      + pg_launches["gather_neighbors"]
+                      + dist_launches["gather_neighbors"]),
          "max_abs_err": gather["max_abs_err"], "ms": gather["ms"],
          "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
          "bound_by": gather["bound_by"],
@@ -2646,6 +3009,7 @@ def main() -> int:
          "max_abs_err": gate["max_abs_err"], "ms": gate["ms"],
          "plain_ms": gate["plain_ms"], "bound_ms": gate["bound_ms"],
          "bound_by": gate["bound_by"], "library_ms": gate["library_ms"]}]}))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -314,6 +314,42 @@ class SyntheticSequence:
         return self.labels[index] if 0 <= index < len(self) else None
 
 
+class VelodyneOrder:
+    """A sequence whose scans run in Velodyne order: every padded scan's
+    points reversed; everything else is the wrapped sequence's.
+
+    The renderer sweeps every beam left to right, so image-x increases
+    within a row and never jumps up, and `segment_rows` finds one or two
+    rows in such a scan.  Reversed, a scan has what the segmenter expects
+    of a Velodyne: image-x decreasing within a row and a jump up between
+    rows.  Same points, same images, same poses.  Opt-in: the renderer's
+    own order stays the JAX package's, byte for byte.  Wraps any sequence
+    with `scans` (this package's or the JAX package's)."""
+
+    def __init__(self, seq):
+        self._seq = seq
+
+    def __getattr__(self, name):
+        return getattr(self._seq, name)
+
+    def __len__(self) -> int:
+        return len(self._seq)
+
+    @staticmethod
+    def _reversed(xyzi, n: int) -> np.ndarray:
+        out = np.zeros_like(np.asarray(xyzi))
+        out[:n] = np.asarray(xyzi)[:n][::-1]
+        return out
+
+    def scans(self, max_points: int) -> Iterator[tuple[np.ndarray, int]]:
+        for xyzi, n in self._seq.scans(max_points):
+            yield self._reversed(xyzi, n), n
+
+    def scan(self, index: int, max_points: int) -> tuple[np.ndarray, int]:
+        xyzi, n = self._seq.scan(index, max_points)
+        return self._reversed(xyzi, n), n
+
+
 def render_sequence(spec: SyntheticSpec = SyntheticSpec(), seed: int = 0
                     ) -> SyntheticSequence:
     """Render a whole sequence into memory."""

@@ -8,8 +8,20 @@ blocks, landmark elimination with closed-form 3x3 inverses, the
 [6K, 6K] reduced camera system solved in fp32, landmark back-
 substitution.  The contractions are fp32 einsums (TF32 off,
 precision.py): the Schur complement S = Hpp - W Hplᵀ cancels strongly
-and needs full fp32.  The landmark-sharded (`axis_name`) variant comes
-with the distributed port.
+and needs full fp32.
+
+`group=` (the counterpart of JAX's `axis_name`) makes the landmark
+dimension this rank's shard of a landmark-sharded problem (every
+per-landmark tensor holds this rank's landmarks, the poses are the same
+on every rank).  `ba_iteration` then assembles the blocks of its own
+landmarks, eliminates them, and sums the pose-side terms over the group's
+ranks: Hpp, the Schur cross term S_cross, bp and the reduced landmark
+gradient b_red_lm, in one all-reduce (collectives.py), at the point where
+JAX psums them.  That is before the Marquardt damping of Hpp, which is
+relative to Hpp's trace and so must see the whole sum.  The [6K, 6K]
+solve and the pose update then run on every rank on the same numbers;
+the landmark back-substitution stays local.  `ba_cost` sums its total
+over the group.  Communication is O(K^2) per iteration, whatever L.
 """
 
 from __future__ import annotations
@@ -18,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..collectives import all_reduce_sum
 from ..core.geometry import PinholeCamera
 from .lie import se3_exp
 
@@ -101,8 +114,10 @@ def _huber_w(err, delta):
 
 
 def ba_cost(camera: PinholeCamera, pb: BAProblem, huber_px: float = 2.0,
-            depth_weight: float = 1.0, huber_depth: float = 0.5
-            ) -> torch.Tensor:
+            depth_weight: float = 1.0, huber_depth: float = 0.5,
+            group=None) -> torch.Tensor:
+    """The robust cost; with `group`, summed over the group's landmark
+    shards."""
     r, _, _, active, r_d, active_d = _residuals_lanes(camera, pb)
     err = torch.sqrt((r * r).sum(1) + 1e-18)
     he = torch.clamp(err, max=huber_px)
@@ -111,13 +126,16 @@ def ba_cost(camera: PinholeCamera, pb: BAProblem, huber_px: float = 2.0,
     hd = torch.clamp(ed, max=huber_depth)
     c_d = torch.where(active_d, depth_weight * hd * (ed - 0.5 * hd),
                       0.0).sum()
+    if group is not None:
+        return all_reduce_sum(group, c + c_d)[0]
     return c + c_d
 
 
 def ba_iteration(camera: PinholeCamera, pb: BAProblem, huber_px: float,
                  depth_weight: float, huber_depth: float,
-                 damping: float) -> BAProblem:
-    """One damped Gauss-Newton iteration."""
+                 damping: float, group=None) -> BAProblem:
+    """One damped Gauss-Newton iteration; with `group`, over this rank's
+    landmark shard (module docstring)."""
     K = pb.R.shape[0]
     dev = pb.R.device
     r, p, inv_z, active, r_d, active_d = _residuals_lanes(camera, pb)
@@ -159,6 +177,9 @@ def ba_iteration(camera: PinholeCamera, pb: BAProblem, huber_px: float,
 
     S_cross = torch.einsum("aiml,bjml->abij", W, Hpl)  # [K, K, 6, 6]
     b_red_lm = torch.einsum("kiml,ml->ki", W, bl)  # [K, 6]
+    if group is not None:
+        Hpp, S_cross, bp, b_red_lm = all_reduce_sum(group, Hpp, S_cross, bp,
+                                                    b_red_lm)
 
     tr_p = torch.diagonal(Hpp, dim1=-2, dim2=-1).sum(-1) / 6.0
     eye6 = torch.eye(6, device=dev)

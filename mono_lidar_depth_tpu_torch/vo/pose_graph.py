@@ -35,7 +35,17 @@ What differs from the JAX package:
     returns), and the host reads the flag every `_CG_CHECK` iterations to
     leave the loop.  So a GN iteration reads the card at most
     ceil(cg_iters / _CG_CHECK) times, and nowhere else.
-  * No `axis_name` (edge-sharded) form yet.
+
+`group=` (the counterpart of JAX's `axis_name`) makes the edge arrays
+this rank's shard of an edge-sharded graph; the poses are the same on
+every rank.  Each rank linearizes its own edges, and three per-pose sums
+are all-reduced over the group (collectives.py), where JAX psums them:
+the gradient b; the CG matvec's scatter, before `+ damping * x` (the
+damping term is added once, not once per rank); and the chain blocks D
+and B, before the relative floor, whose scale is the mean trace of the
+WHOLE D.  Everything after a sum (the preconditioner, the CG state, the
+pose update) runs on every rank on the same numbers, so the iterates
+never part.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..collectives import all_reduce_sum
 from .lie import se3_exp, se3_log
 from .linalg6 import inv6_spd
 
@@ -266,18 +277,28 @@ def _scatter(n: int, lin_i: torch.Tensor, x_i: torch.Tensor,
     return out.index_add_(0, lin_i, x_i).index_add_(0, lin_j, x_j)
 
 
-def _chain_blocks(g: PoseGraph, lin: _Linearization):
-    """The preconditioner's blocks from the chain edges (edge_j = edge_i +
-    1) alone: D [N, 6, 6] with the relative floor on its diagonal (the
-    identity on fixed poses), B [N, 6, 6]."""
+def _chain_sums(g: PoseGraph, lin: _Linearization):
+    """Per-pose sums of the chain edges' (edge_j = edge_i + 1) Hessian
+    blocks: D [N, 6, 6] on the diagonal, B [N, 6, 6] above it."""
     N = g.R.shape[0]
-    eye6 = torch.eye(6, dtype=g.t.dtype, device=g.t.device)
     wc = torch.where((g.edge_j == g.edge_i + 1)[:, None], lin.w, 0.0)
     Hii = torch.einsum("eri,er,erj->eij", lin.Ji, wc, lin.Ji)
     Hjj = torch.einsum("eri,er,erj->eij", lin.Jj, wc, lin.Jj)
     Hij = torch.einsum("eri,er,erj->eij", lin.Ji, wc, lin.Jj)
     D = _scatter(N, g.edge_i, Hii, g.edge_j, Hjj)
     B = g.t.new_zeros((N, 6, 6)).index_add_(0, g.edge_i, Hij)
+    return D, B
+
+
+def _chain_blocks(g: PoseGraph, lin: _Linearization, group=None):
+    """The preconditioner's blocks from the chain edges alone: D [N, 6, 6]
+    with the relative floor on its diagonal (the identity on fixed poses),
+    B [N, 6, 6].  With `group` the sums are all-reduced before the floor,
+    which is relative to the whole graph's D."""
+    D, B = _chain_sums(g, lin)
+    if group is not None:
+        D, B = all_reduce_sum(group, D, B)
+    eye6 = torch.eye(6, dtype=g.t.dtype, device=g.t.device)
     # The relative floor shapes only the preconditioner; the raw damping
     # would underflow the f32 3x3 adjugate determinants.
     diag_scale = torch.diagonal(D, dim1=1, dim2=2).sum(-1).mean() / 6.0
@@ -313,13 +334,18 @@ def _pcg(matvec, apply_Minv, b: torch.Tensor, cg_iters: int):
         rr = torch.where(active, (r_new * r_new).sum(), rr)
         iterations = iterations + active.to(torch.int32)
         active = active & (rr > tol)
+        # With an edge-sharded graph every rank must leave the loop at the
+        # same read, or one waits in the matvec's all-reduce for a rank
+        # that left.  They do: `active` is made from `rr` and `tol`, which
+        # come from the all-reduced b and matvec sums through the same
+        # replicated arithmetic on every rank, so it has the same bits.
         if k % _CG_CHECK == 0 and k < cg_iters and not bool(active):
             break  # the host read: at most ceil(cg_iters / _CG_CHECK)
     return x, iterations
 
 
 def _gn_step(g: PoseGraph, it: int, gn_iters: int, cg_iters: int,
-             huber: float, damping: float, precondition: bool):
+             huber: float, damping: float, precondition: bool, group=None):
     """One Gauss-Newton iteration: (updated graph, PCG iterations)."""
     N = g.R.shape[0]
     lin = _linearize(g, it, gn_iters, huber)
@@ -327,17 +353,21 @@ def _gn_step(g: PoseGraph, it: int, gn_iters: int, cg_iters: int,
     wr = lin.w * lin.r0
     b = _scatter(N, g.edge_i, torch.einsum("eri,er->ei", lin.Ji, wr),
                  g.edge_j, torch.einsum("eri,er->ei", lin.Jj, wr))
+    if group is not None:
+        b, = all_reduce_sum(group, b)
 
     def matvec(x):  # H x with H = J^T w J + damping I
         Ax = (torch.einsum("erc,ec->er", lin.Ji, x[g.edge_i])
               + torch.einsum("erc,ec->er", lin.Jj, x[g.edge_j]))
         wAx = lin.w * Ax
-        return _scatter(N, g.edge_i, torch.einsum("eri,er->ei", lin.Ji, wAx),
-                        g.edge_j, torch.einsum("eri,er->ei", lin.Jj, wAx)
-                        ) + damping * x
+        y = _scatter(N, g.edge_i, torch.einsum("eri,er->ei", lin.Ji, wAx),
+                     g.edge_j, torch.einsum("eri,er->ei", lin.Jj, wAx))
+        if group is not None:
+            y, = all_reduce_sum(group, y)
+        return y + damping * x
 
     if precondition:
-        apply_Minv = _chain_preconditioner(*_chain_blocks(g, lin))
+        apply_Minv = _chain_preconditioner(*_chain_blocks(g, lin, group))
     else:
         def apply_Minv(r):
             return r
@@ -353,7 +383,7 @@ def _gn_step(g: PoseGraph, it: int, gn_iters: int, cg_iters: int,
 def optimize_pose_graph(graph: PoseGraph, gn_iters: int = 8,
                         cg_iters: int = 200, huber: float = 0.5,
                         damping: float = 1e-6,
-                        precondition: bool = True) -> PoseGraph:
+                        precondition: bool = True, group=None) -> PoseGraph:
     """Run Gauss-Newton with (preconditioned) CG inner solves; returns the
     updated graph.
 
@@ -361,10 +391,11 @@ def optimize_pose_graph(graph: PoseGraph, gn_iters: int = 8,
     block-tridiagonal chain Hessian: convergence takes O(closure-count)
     iterations independent of N, and the solve exits early at a 1e-4
     relative residual, so `cg_iters` is a cap, not a cost.
-    `precondition=False` runs plain CG."""
+    `precondition=False` runs plain CG.  With `group` the edge arrays are
+    this rank's shard of an edge-sharded graph (module docstring)."""
     for it in range(gn_iters):
         graph, _ = _gn_step(graph, it, gn_iters, cg_iters, huber, damping,
-                            precondition)
+                            precondition, group)
     return graph
 
 

@@ -30,7 +30,7 @@ with the same plan (4 warm, 4 timed alone, 3 profiled), its stages being
 remains.
 
 Then the optional configurations, on the same rendered frames with their
-scans in Velodyne order (chip_smoke.VelodyneOrder) and the tracker's
+scans in Velodyne order (io/synthetic_dataset.VelodyneOrder) and the tracker's
 outputs made beforehand: `odometry_step` with the defaults and then with
 `do_use_depth_segmentation=True` (stages `segment_rows`, `grow_regions`,
 the two `estimate_depths_from_frame` passes), and `process_frame` with
@@ -207,6 +207,7 @@ def main() -> int:
     import torch
     import mono_lidar_depth_tpu_torch as T
     from mono_lidar_depth_tpu_torch.eval.kitti_eval import _dev_img
+    from mono_lidar_depth_tpu_torch.io.synthetic_dataset import VelodyneOrder
 
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -240,7 +241,7 @@ def main() -> int:
                   f"levels, {seq.camera.width}x{seq.camera.height})", track,
                   TRACK_STAGES, card)
     # ---- the optional configurations on the rendered frames
-    vseq = cs.VelodyneOrder(seq)
+    vseq = VelodyneOrder(seq)
     l2c = seq.lidar_to_cam(dev)
     prime: list = []
     inputs = [f for f, _ in T.frame_inputs(

@@ -337,27 +337,6 @@ def test_vo_eval_matches_jax(disk, full_vo):
                                want["poses"][:, :3, 3], atol=0.1)
 
 
-class _VelodyneOrder:
-    """A sequence whose scans run in Velodyne order (the renderer's order
-    reversed: image-x decreasing within a row, a jump up between rows),
-    for either package's evaluators."""
-
-    def __init__(self, seq):
-        self._seq = seq
-
-    def __getattr__(self, name):
-        return getattr(self._seq, name)
-
-    def __len__(self):
-        return len(self._seq)
-
-    def scans(self, max_points):
-        for xyzi, n in self._seq.scans(max_points):
-            out = np.zeros_like(np.asarray(xyzi))
-            out[:n] = np.asarray(xyzi)[:n][::-1]
-            yield out, n
-
-
 @pytest.mark.parametrize("mode", ["semantic", "region_growing"])
 def test_image_fed_odometry_modes_match_jax(disk, monkeypatch, mode):
     """Five processed frames through the JAX `_frame_inputs` +
@@ -373,7 +352,7 @@ def test_image_fed_odometry_modes_match_jax(disk, monkeypatch, mode):
         kw["ransac_plane_refinement_treshold"] = 0.3
     else:
         kw["do_use_depth_segmentation"] = True
-        jseq, tseq = _VelodyneOrder(jseq), _VelodyneOrder(tseq)
+        jseq, tseq = tsyn.VelodyneOrder(jseq), tsyn.VelodyneOrder(tseq)
     jcfg, tcfg = J.DepthEstimatorConfig(**kw), T.DepthEstimatorConfig(**kw)
     jocfg, tocfg = jvo.OdometryConfig(), T.OdometryConfig()
     jcam, jl2c = jseq.calib.camera, jseq.calib.lidar_to_cam

@@ -32,7 +32,7 @@ PKG = REPO / "mono_lidar_depth_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "mono_lidar_depth_tpu")
 LAZY_ONLY = ("PIL", "yaml")  # may be imported inside a function only
 SCRIPTS = ["chip_smoke.py", "profile_step.py", "gate_variants.py",
-           "scripts/run_kitti_torch.py"]
+           "scripts/run_kitti_torch.py", "__graft_entry_torch__.py"]
 
 
 def _port_modules():
@@ -44,7 +44,8 @@ def test_port_imports_no_jax():
     code = (
         "import sys, importlib\n"
         f"for m in {_port_modules()!r} + ['mono_lidar_depth_tpu_torch', "
-        "'chip_smoke', 'profile_step', 'gate_variants']:\n"
+        "'chip_smoke', 'profile_step', 'gate_variants', "
+        "'__graft_entry_torch__']:\n"
         "    importlib.import_module(m)\n"
         "import importlib.util as u\n"
         "spec = u.spec_from_file_location('run_kitti_torch', "
@@ -93,7 +94,8 @@ def test_new_modules_are_covered():
             "core/row_segmentation.py", "io/kitti.py", "io/native.py",
             "io/messages.py", "io/checkpoint.py", "obs/timing.py",
             "vo/pose_graph.py", "vo/closures.py", "conversions/__init__.py",
-            "conversions/convert.py"} <= have
+            "conversions/convert.py", "collectives.py", "dist/__init__.py",
+            "dist/mesh.py", "dist/sharded.py", "dist/launch.py"} <= have
 
 
 @pytest.mark.parametrize("source", sorted(

@@ -228,8 +228,8 @@ def rendered():
     in such a scan (in both packages).  Reversed, the scan has what the
     segmenter expects of a Velodyne: image-x decreasing within a row and
     a jump up of the whole image width between rows."""
-    seq = tsyn.render_sequence(tsyn.SyntheticSpec(**SPEC), seed=2)
-    seq.raw_scans = [np.ascontiguousarray(s[::-1]) for s in seq.raw_scans]
+    seq = tsyn.VelodyneOrder(tsyn.render_sequence(tsyn.SyntheticSpec(**SPEC),
+                                                  seed=2))
     jcfg = J.DepthEstimatorConfig(**SMALL)
     jcam = J.PinholeCamera(*seq.camera)
     jl2c = J.SE3(jnp.asarray(seq.Tr[:, :3], jnp.float32),

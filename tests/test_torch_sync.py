@@ -37,7 +37,7 @@ from torch_parity import (assert_trees_equal, jax_ransac_draws, to_numpy,
 
 PKG = Path(T.__file__).resolve().parent
 PER_FRAME = sorted(str(p.relative_to(PKG)) for d in
-                   ("core", "tracks", "vo", "tracker", "eval", "obs")
+                   ("core", "tracks", "vo", "tracker", "eval", "obs", "dist")
                    for p in (PKG / d).glob("*.py"))
 
 
@@ -218,12 +218,17 @@ def test_update_tracks_seed_length(T_slots, M):
                           "_affine_combine", "_scan_plan", "_scan_apply",
                           "_affine_scan", "_inv6_scaled", "_chain_factor",
                           "_chain_preconditioner", "_linearize", "_scatter",
-                          "_chain_blocks", "_gn_step", "optimize_pose_graph",
+                          "_chain_sums", "_chain_blocks", "_gn_step",
+                          "optimize_pose_graph",
                           "graph_cost", "sequential_edges"]),
     ("vo/closures.py", ["_closure_pose_device", "_closure_rng"]),
+    ("vo/ba.py", None),
+    ("collectives.py", ["all_reduce_sum"]),
+    ("dist/sharded.py", None),
 ])
 def test_no_read_back_in_the_new_per_frame_code(path, functions):
-    """Region growing, the semantic plane and the chunk runners read
+    """Region growing, the semantic plane, the chunk runners, the pose
+    graph (but `_pcg`), BA, the collective and the sharded programs read
     nothing back to the host: no `.item()`, `.tolist()`, `.cpu()`,
     `.numpy()`, `int(...)`, `float(...)` or `bool(...)` of a tensor, and no
     Python loop over features (`for` appears only over frames, scales and
