@@ -7,13 +7,16 @@ Phases, each printed on its own lines:
 
   1. device  — the card's name and power limit; TF32 is off.
   2. build   — nvcc builds the kernel libraries from csrc/ (sm_90a),
-               one process per source, all started together.
+               one process per source, all started together; the LK
+               kernel must not spill.
   3. kernels — every kernel of the main paths against its plain PyTorch
                version on the card at the main paths' shapes: the window
                crop bit-exact at edge starts; the fused Lucas-Kanade
-               level within LK_TOL_PX at the four level shapes of a KITTI
-               pyramid, with features on and past the borders, and at
-               every other patch size the kernel is built for; the fused
+               passes (both passes over a 4-level KITTI pyramid, one
+               launch) within LK_TOL_PX on each pass and equal to the
+               plain version to the bit, with features on and past the
+               borders of every level, at the main patch and at every
+               other patch size the kernel is built for; the fused
                neighbor gather bit-exact on every field on rasterized
                synthetic scans, for one and two frames, one and two
                scales, with and without the index plane, unequal
@@ -24,8 +27,8 @@ Phases, each printed on its own lines:
                around back-to-back calls, host launch cost included) and
                one library call as a yardstick: for the crop one
                advanced-indexing gather on index tensors made
-               beforehand, for the LK level one `grid_sample` of the
-               same patch taps, for the neighbor gather the four
+               beforehand, for the LK passes one `grid_sample` of the
+               same patch taps per level and iteration, for the neighbor gather the four
                indexing gathers of its crops alone.
   4. main    — `prime_state` then FRAMES odometry steps at the full
                KITTI size (131,072-point cloud, 2,048 features,
@@ -46,7 +49,7 @@ Phases, each printed on its own lines:
                lidar scans) rendered in memory, then `init_tracker` and
                per frame `track_frame` + `odometry_step` through
                `frame_inputs`, with every kernel's launch count read
-               after every frame (8 LK levels and 1 gate per
+               after every frame (1 LK launch and 1 gate per
                `track_frame`, 1 neighbor gather per step, no crop); state on the card, no host sync inside
                `track_frame`, ids persistent, poses finite and on the
                ground truth's path, the same frames through
@@ -59,8 +62,8 @@ Phases, each printed on its own lines:
   8. posegraph — config 4 at the KITTI size: `eval_vo_sequence` over a
                LOOP_FRAMES-frame rendered loop, then closure proposal
                (metric and appearance), verification of every candidate
-               (per direction one device call that launches exactly 8
-               `lk_level`, 1 `zncc_gate` and 1 `gather_neighbors` and
+               (per direction one device call that launches exactly 1
+               `lk_track`, 1 `zncc_gate` and 1 `gather_neighbors` and
                never waits for the host) and `run_pose_graph_backend`,
                without and with injected drift (ATE must fall, below 0.7x
                under drift); the first CPU_PAIRS pairs and the backend on
@@ -105,19 +108,20 @@ SEQ_CHUNK = 4  # frames per chunk of the sequence evaluators in phase 7
 RESUME_AT = 5  # phase 7 stops before this frame, checkpoints and resumes
 REPLACES = "mono_lidar_depth_tpu/core/pallas_windows.py:95"
 SOURCE = "mono_lidar_depth_tpu_torch/csrc/windows.cu"
-LK_SOURCE = "mono_lidar_depth_tpu_torch/csrc/lk_level.cu"
+LK_SOURCE = "mono_lidar_depth_tpu_torch/csrc/lk_track.cu"
 GATHER_SOURCE = "mono_lidar_depth_tpu_torch/csrc/gather_neighbors.cu"
 GATE_SOURCE = "mono_lidar_depth_tpu_torch/csrc/zncc_gate.cu"
 # The tracker's settings on the image-fed path (the eval harness's).
 LEVELS, PATCH, LK_ITERS, MIN_DET = 4, 9, 8, 1e-4
 # The other patch sizes held against the plain version (no timing): with
-# PATCH they reach every instantiation of the kernel (1, 2, 3, 4, 6 and 8
-# taps per lane) up to its largest patch.
+# PATCH they reach every odd patch the kernel is built for from 5 on, and
+# both orders of its sums (patches 13 and 15 sum 4 floats at a time).
 OTHER_PATCHES = (5, 7, 11, 13, 15)
-# The fused LK level against its plain version: every elementwise step is
-# the plain version's to the bit, the 81-term sums run in another order,
-# and 8 dependent iterations carry that along.  Lanes `ok` in both must
-# end within LK_TOL_PX of each other, and `ok` must agree on LK_OK_SHARE
+# The fused LK passes against their plain version: every elementwise step
+# is the plain version's, in its order, and every sum runs in the order of
+# torch.sum on the card, so the two agree to the bit (checked).  The bars
+# stand for what the tracker needs: lanes `ok` in both must end within
+# LK_TOL_PX of each other on each pass, and `ok` must agree on LK_OK_SHARE
 # of the lanes.
 LK_TOL_PX = 1e-3
 LK_OK_SHARE = 0.999
@@ -192,6 +196,24 @@ DIST_BA_COST_ATOL = 1e-9
 DIST_TIMED_ITERS = 5  # BA iterations per timing
 R_LC = np.array([[0, -1, 0], [0, 0, -1], [1, 0, 0]], dtype=np.float32)
 T_LC = np.array([0.0, -0.08, 0.27], dtype=np.float32)
+
+
+def check_no_spills(build_log: str, source: str) -> None:
+    """Fail if ptxas reported a spill for any kernel of `source` in the
+    build log (kernels.build_info["log"]); a cached build has no log."""
+    if build_log == "(cached)":
+        return
+    section = build_log.split(f"[{source}]", 1)[1].split("\n[", 1)[0]
+    kernel, spills, bad = "?", 0, []
+    for ln in section.splitlines():
+        if "Compiling entry function" in ln:
+            kernel = ln.split("'")[1]
+        elif "spill" in ln:
+            spills += 1
+            if "0 bytes spill stores, 0 bytes spill loads" not in ln:
+                bad.append(f"{kernel}: {ln.strip()}")
+    check(spills > 0, f"no ptxas report for {source}")
+    check(not bad, f"{source} spills registers: {bad}")
 
 
 def log(*parts) -> None:
@@ -421,73 +443,109 @@ def border_centres(H, W, patch):
             + list(zip(edge_x, edge_y)) + list(zip(edge_x, edge_y[::-1])))
 
 
-def lk_features(rng, H, W, N, corners, patch=PATCH):
-    """Feature positions and start guesses for one level: detected
-    corners, uniform random positions, and the border cases."""
+def lk_lanes(rng, pyr, N, patch=PATCH):
+    """Start positions and forward guesses for the LK passes at the finest
+    level of a pyramid on the card: detected corners, uniform random
+    positions, and the border cases of every level scaled up to the
+    finest; each guess is its start moved by a normal 1 px."""
+    import torch
+    from mono_lidar_depth_tpu_torch.tracker import harris
+
+    H, W = pyr[0].shape
+    corners, _ = harris.detect_features(pyr[0], N, cell_size=4, border=2)
     uv = rng.uniform([0, 0], [W - 1, H - 1], (N, 2))
-    uv[: N // 2] = corners[: N // 2]
-    edges = border_centres(H, W, patch)
+    uv[: N // 2] = corners.cpu().numpy()[: N // 2]
+    edges = [(x * 2 ** lvl, y * 2 ** lvl) for lvl, img in enumerate(pyr)
+             for x, y in border_centres(*img.shape, patch)]
     uv[N - len(edges):] = edges
     guess = uv + rng.normal(0.0, 1.0, (N, 2))
-    return uv.astype(np.float32), guess.astype(np.float32)
+    return (torch.from_numpy(uv.astype(np.float32)).to(pyr[0].device),
+            torch.from_numpy(guess.astype(np.float32)).to(pyr[0].device))
 
 
-def lk_bound_ms(H, W, N) -> tuple[float, float]:
-    """The two least times the card could take for one LK level: the
-    bytes it must move (both images, uv_prev and uv_guess read once,
-    uv_out and ok written once) over the device-memory rate, and its
-    fp32 operations over the fp32 peak.  The bound is the larger."""
-    nbytes = 2 * H * W * 4 + N * (2 * 8 + 8 + 1)
-    taps = PATCH * PATCH
-    # blend: 9 ops per sample; gradients 4 and their products 6 per tap;
-    # per iteration and tap: blend 9, residual 1, two products 4.
-    flops = N * ((PATCH + 2) ** 2 * 9 + taps * 10 + LK_ITERS * taps * 14)
+def lk_bound_ms(shapes, N, patch=PATCH) -> tuple[float, float]:
+    """The two least times the card could take for both LK passes over
+    pyramids of these level shapes: the bytes they must move (both
+    pyramids, uv and guess read once; uv_f, uv_b, ok_f and ok_b written
+    once) over the device-memory rate, and their fp32 operations over the
+    fp32 peak.  The bound is the larger."""
+    nbytes = sum(2 * H * W * 4 for H, W in shapes) + N * (2 * 8 + 2 * 9)
+    taps = patch * patch
+    # per pass, level and feature: blend 9 ops per sample; gradients 4 and
+    # their products 6 per tap; per iteration and tap: blend 9, residual
+    # 1, two products 4.
+    flops = 2 * len(shapes) * N * ((patch + 2) ** 2 * 9 + taps * 10
+                                   + LK_ITERS * taps * 14)
     return nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FP32_S * 1e3
 
 
-def lk_compare(prev, nxt, uv, guess, patch: int) -> float:
-    """One LK level through the kernel and through its plain version on
-    the same inputs: checks the two bars and returns max |uv - plain| on
-    the lanes `ok` in both."""
+def same_bits(a, b) -> bool:
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def lk_compare(pyr0, pyr1, uv, guess, patch: int) -> float:
+    """Both LK passes through the kernel and through their plain version
+    on the same inputs: checks the bars on each pass and that all four
+    outputs are the plain version's to the bit (the kernel sums in
+    torch.sum's order on the card).  Returns max |uv - plain| over both
+    passes on the lanes `ok` in both."""
     import torch
     from mono_lidar_depth_tpu_torch.tracker import klt
 
-    H, W = prev.shape
-    got_uv, got_ok = klt._lk_level_cuda(prev, nxt, uv, guess, patch,
-                                        LK_ITERS, MIN_DET)
+    args = (pyr0, pyr1, uv, guess, patch, LK_ITERS, MIN_DET)
+    got = klt._track_passes_cuda(*args)
     torch.cuda.synchronize()
-    want_uv, want_ok = klt._lk_level_reference(prev, nxt, uv, guess, patch,
-                                               LK_ITERS, MIN_DET)
+    want = klt._track_passes_reference(*args)
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(got_uv).all()), "lk_level: non-finite uv")
-    both = got_ok & want_ok
-    ok_share = float((got_ok == want_ok).float().mean())
-    err = (got_uv - want_uv).abs().amax(dim=1)[both]
-    worst = float(err.max())
-    within = float((err <= LK_TOL_PX).float().mean())
-    moved = float((want_uv - guess).norm(dim=1)[both].median())
-    log(f"phase 3 kernels: lk_level {H}x{W} N={uv.shape[0]} patch {patch} "
-        f"iters {LK_ITERS}: ok lanes kernel {int(got_ok.sum())} plain "
-        f"{int(want_ok.sum())}, ok equal on {ok_share:.5f}; on lanes ok "
-        f"in both max |uv - plain| {worst:.3e} px, share within "
-        f"{LK_TOL_PX} px {within:.5f}, median move from the guess "
-        f"{moved:.3f} px")
-    check(ok_share >= LK_OK_SHARE,
-          f"lk_level {H}x{W} patch {patch}: ok agrees on {ok_share:.5f} < "
-          f"{LK_OK_SHARE}")
-    check(worst <= LK_TOL_PX,
-          f"lk_level {H}x{W} patch {patch}: max |uv - plain| {worst:.3e} "
-          f"px > {LK_TOL_PX}")
+    H, W = pyr0[0].shape
+    where = f"lk_track {len(pyr0)} levels from {H}x{W} patch {patch}"
+    worst, notes = 0.0, []
+    for name, g_uv, g_ok, w_uv, w_ok in (
+            ("forward", got[0], got[1], want[0], want[1]),
+            ("backward", got[2], got[3], want[2], want[3])):
+        check(bool(torch.isfinite(g_uv).all()), f"{where}: non-finite "
+                                                f"{name} uv")
+        both = g_ok & w_ok
+        ok_share = float((g_ok == w_ok).float().mean())
+        err = (g_uv - w_uv).abs().amax(dim=1)[both]
+        pass_worst = float(err.max())
+        notes.append(f"{name}: ok lanes kernel {int(g_ok.sum())} plain "
+                     f"{int(w_ok.sum())}, ok equal on {ok_share:.5f}, on "
+                     f"lanes ok in both max |uv - plain| {pass_worst:.3e} "
+                     f"px, share within {LK_TOL_PX} px "
+                     f"{float((err <= LK_TOL_PX).float().mean()):.5f}")
+        check(ok_share >= LK_OK_SHARE,
+              f"{where} {name}: ok agrees on {ok_share:.5f} < {LK_OK_SHARE}")
+        check(pass_worst <= LK_TOL_PX,
+              f"{where} {name}: max |uv - plain| {pass_worst:.3e} px > "
+              f"{LK_TOL_PX}")
+        worst = max(worst, pass_worst)
+    bits = all(same_bits(a, b) for a, b in zip(got, want))
+    moved = float((want[0] - guess).norm(dim=1)[want[1]].median())
+    log(f"phase 3 kernels: {where} N={uv.shape[0]} iters {LK_ITERS}: "
+        f"{'; '.join(notes)}; median forward move from the guess "
+        f"{moved:.3f} px; all four outputs equal to the plain version's to "
+        f"the bit: {bits}")
+    check(bits, f"{where}: the kernel differs from the plain version in "
+          f"its bits under torch {torch.__version__} ({'; '.join(notes)}). "
+          f"With the bars met, suspect torch.sum's order on the card: "
+          f"csrc/lk_track.cu's TapOrder mirrors torch 2.11's Reduce.cuh")
     return worst
 
 
 def phase_lk(card: str, img0: np.ndarray, img1: np.ndarray) -> dict:
-    """The fused LK level against its plain version at the four level
-    shapes of the rendered frame pair."""
+    """The fused LK passes against their plain version on the 4-level
+    pyramid of the rendered frame pair, at the main patch and at every
+    other patch the kernel is built for, and the cost of one
+    track_frame's LK work."""
     import torch
     import torch.nn.functional as F
     from mono_lidar_depth_tpu_torch.eval.kitti_eval import _dev_img
-    from mono_lidar_depth_tpu_torch.tracker import harris, klt
+    from mono_lidar_depth_tpu_torch.tracker import klt
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2)
@@ -496,84 +554,64 @@ def phase_lk(card: str, img0: np.ndarray, img1: np.ndarray) -> dict:
                              LEVELS)
     pyr1 = klt.build_pyramid(_dev_img(torch.from_numpy(img1).to(dev)),
                              LEVELS)
-    tot = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-           "library_ms": 0.0, "by_bytes": 0.0, "by_ops": 0.0}
-    for lvl in range(LEVELS):
-        prev, nxt = pyr0[lvl], pyr1[lvl]
-        H, W = prev.shape
-        corners, _ = harris.detect_features(prev, N, cell_size=4, border=2)
-        uv_np, guess_np = lk_features(rng, H, W, N, corners.cpu().numpy())
-        uv = torch.from_numpy(uv_np).to(dev)
-        guess = torch.from_numpy(guess_np).to(dev)
+    uv, guess = lk_lanes(rng, pyr0, N)
+    per_patch = {PATCH: lk_compare(pyr0, pyr1, uv, guess, PATCH)}
 
-        def kernel(iters=LK_ITERS):
-            return klt._lk_level_cuda(prev, nxt, uv, guess, PATCH, iters,
+    def kernel(iters=LK_ITERS):
+        return klt._track_passes_cuda(pyr0, pyr1, uv, guess, PATCH, iters,
                                       MIN_DET)
 
-        def plain():
-            return klt._lk_level_reference(prev, nxt, uv, guess, PATCH,
+    def plain():
+        return klt._track_passes_reference(pyr0, pyr1, uv, guess, PATCH,
                                            LK_ITERS, MIN_DET)
 
-        worst = lk_compare(prev, nxt, uv, guess, PATCH)
-
-        # Library yardstick: one grid_sample of the N x 81 patch taps
-        # (the sampling of ONE iteration), never called by the port.
-        r = (PATCH - 1) // 2
-        off = torch.arange(-r, r + 1, device=dev, dtype=torch.float32)
-        px = guess[:, None, None, 0] + off[None, None, :]
-        py = guess[:, None, None, 1] + off[None, :, None]
+    ms = device_ms(kernel, "lk_track_kernel")
+    ms0 = device_ms(lambda: kernel(0), "lk_track_kernel")
+    plain_ms = device_ms(plain, reps=5)
+    wrap_ms, wrap_plain_ms = time_ms(kernel), time_ms(plain, reps=5)
+    # Library yardstick: per level one grid_sample of the N x 81 patch
+    # taps (the sampling of ONE iteration), 2 passes x LK_ITERS times;
+    # never called by the port.
+    r = (PATCH - 1) // 2
+    off = torch.arange(-r, r + 1, device=dev, dtype=torch.float32)
+    lib_ms = 0.0
+    for lvl, img in enumerate(pyr1):
+        H, W = img.shape
+        at = guess / 2 ** lvl
+        px = at[:, None, None, 0] + off[None, None, :]
+        py = at[:, None, None, 1] + off[None, :, None]
         grid = torch.stack([(2 * px / (W - 1) - 1).expand(N, PATCH, PATCH),
                             (2 * py / (H - 1) - 1).expand(N, PATCH, PATCH)],
                            dim=-1).reshape(1, N, PATCH * PATCH, 2)
 
-        def library():
-            return F.grid_sample(nxt[None, None], grid, mode="bilinear",
+        def library(img=img, grid=grid):
+            return F.grid_sample(img[None, None], grid, mode="bilinear",
                                  padding_mode="border", align_corners=True)
 
-        ms = device_ms(kernel, "lk_level_kernel")
-        ms0 = device_ms(lambda: kernel(0), "lk_level_kernel")
-        plain_ms = device_ms(plain, reps=5)
-        lib_ms = device_ms(library)
-        wrap_ms, wrap_plain_ms = time_ms(kernel), time_ms(plain, reps=5)
-        by_bytes, by_ops = lk_bound_ms(H, W, N)
-        bound = max(by_bytes, by_ops)
-        by = "bytes" if by_bytes >= by_ops else "operations"
-        l2_mb = N * ((PATCH + 3) ** 2 + LK_ITERS * 4 * PATCH ** 2) * 4 / 1e6
-        log(f"phase 3 kernels: lk_level {H}x{W}: device time kernel "
-            f"{ms:.4f} ms (template stage alone {ms0:.4f} ms, one iteration "
-            f"{(ms - ms0) / LK_ITERS:.5f} ms), plain {plain_ms:.4f} ms, "
-            f"bound {bound:.5f} ms by {by}, {l2_mb:.1f} MB of L1/L2 tap "
-            f"reads; grid_sample of one iteration's taps {lib_ms:.4f} ms; "
-            f"wrapper time (CUDA events, back-to-back calls) kernel "
-            f"{wrap_ms:.4f} ms, plain {wrap_plain_ms:.4f} ms [{card}]")
-        # One track_frame runs every level twice (forward and backward).
-        tot["max_abs_err"] = max(tot["max_abs_err"], worst)
-        tot["ms"] += 2 * ms
-        tot["plain_ms"] += 2 * plain_ms
-        tot["bound_ms"] += 2 * bound
-        tot["library_ms"] += 2 * LK_ITERS * lib_ms
-        tot["by_bytes"] += 2 * by_bytes
-        tot["by_ops"] += 2 * by_ops
-    # The kernel's other instantiations, at the finest and the coarsest
-    # level (correctness only).
-    for lvl in (0, LEVELS - 1):
-        prev, nxt = pyr0[lvl], pyr1[lvl]
-        H, W = prev.shape
-        corners, _ = harris.detect_features(prev, N, cell_size=4, border=2)
-        for patch in OTHER_PATCHES:
-            uv_np, guess_np = lk_features(rng, H, W, N,
-                                          corners.cpu().numpy(), patch)
-            tot["max_abs_err"] = max(tot["max_abs_err"], lk_compare(
-                prev, nxt, torch.from_numpy(uv_np).to(dev),
-                torch.from_numpy(guess_np).to(dev), patch))
-    tot["bound_by"] = ("bytes" if tot.pop("by_bytes") >= tot.pop("by_ops")
-                       else "operations")
-    log(f"phase 3 kernels: per track_frame (2 passes x {LEVELS} levels), "
-        f"device time: lk_level {tot['ms']:.4f} ms, plain "
-        f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms, "
-        f"grid_sample for the iterations' taps alone (2 x {LEVELS} x "
-        f"{LK_ITERS} calls) {tot['library_ms']:.4f} ms [{card}]")
-    return tot
+        lib_ms += 2 * LK_ITERS * device_ms(library)
+    shapes = [tuple(p.shape) for p in pyr0]
+    by_bytes, by_ops = lk_bound_ms(shapes, N)
+    bound = max(by_bytes, by_ops)
+    by = "bytes" if by_bytes >= by_ops else "operations"
+    log(f"phase 3 kernels: lk_track, one launch for both passes over "
+        f"{LEVELS} levels {shapes}, N={N}, patch {PATCH}, {LK_ITERS} "
+        f"iterations: device time kernel {ms:.4f} ms (template stages "
+        f"alone, iters 0: {ms0:.4f} ms; one iteration round of all "
+        f"{2 * LEVELS} levels {(ms - ms0) / LK_ITERS:.5f} ms), plain "
+        f"{plain_ms:.4f} ms, bound {bound:.5f} ms by {by} (bytes "
+        f"{by_bytes:.5f}, operations {by_ops:.5f}); grid_sample of the "
+        f"iterations' taps alone (2 x {LEVELS} x {LK_ITERS} calls) "
+        f"{lib_ms:.4f} ms; wrapper time (CUDA events, back-to-back calls) "
+        f"kernel {wrap_ms:.4f} ms, plain {wrap_plain_ms:.4f} ms [{card}]")
+    for patch in OTHER_PATCHES:
+        uv_p, guess_p = lk_lanes(rng, pyr0, N, patch)
+        per_patch[patch] = lk_compare(pyr0, pyr1, uv_p, guess_p, patch)
+    log(f"phase 3 kernels: lk_track per patch, max |uv - plain| on lanes ok "
+        f"in both (both passes; each run equal to the plain version to the "
+        f"bit): { {p: f'{w:.3e}' for p, w in sorted(per_patch.items())} }")
+    return {"max_abs_err": max(per_patch.values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
 
 
 def gather_features(rng, H, W, N, scales):
@@ -904,9 +942,8 @@ def tracked_gate_lanes(rng, pyr0, pyr1, N, patch, n_tracked=1400):
     H, W = pyr0[0].shape
     uv, valid = harris.detect_features(pyr0[0], n_tracked, cell_size=4,
                                        border=2)
-    uv_f, ok_f = klt._pyramidal(pyr0, pyr1, uv, patch, LK_ITERS, MIN_DET)
-    uv_b, ok_b = klt._pyramidal(pyr1, pyr0, uv_f, patch, LK_ITERS, MIN_DET,
-                                guess=uv)
+    uv_f, ok_f, uv_b, ok_b = klt._track_passes(pyr0, pyr1, uv, None, patch,
+                                               LK_ITERS, MIN_DET)
     tracked = [x.cpu().numpy() for x in (uv, uv_f, uv_b, valid, ok_f, ok_b)]
     return [torch.from_numpy(x).to(uv.device) for x in
             gate_lanes(rng, H, W, N, patch, tracked)]
@@ -1457,7 +1494,7 @@ def phase_images(card: str, seq, render_s: float) -> dict:
     prime: list = []
     frames = T.frame_inputs(seq, cfg, prime=prime, pyramid_levels=LEVELS,
                             device=dev, seed=SEED)
-    kernel_names = ("lk_level", "zncc_gate", "slice_windows",
+    kernel_names = ("lk_track", "zncc_gate", "slice_windows",
                     "gather_neighbors")
 
     def launched():
@@ -1498,10 +1535,10 @@ def phase_images(card: str, seq, render_s: float) -> dict:
     c = np.asarray(counts)
     before = np.concatenate([[[0, 0, 0, 0]], c[:-1, 4:]])
     in_track, in_step = c[:, :4] - before, c[:, 4:] - c[:, :4]
-    check(bool((in_track == [2 * LEVELS, 1, 0, 0]).all()
+    check(bool((in_track == [1, 1, 0, 0]).all()
                and (in_step == [0, 0, 0, 1]).all()),
           f"launches {kernel_names} per frame: track_frame "
-          f"{in_track.tolist()}, want [{2 * LEVELS}, 1, 0, 0]; odometry_step "
+          f"{in_track.tolist()}, want [1, 1, 0, 0]; odometry_step "
           f"{in_step.tolist()}, want [0, 0, 0, 1]")
     leaves = list(tensors_of((state, outs, inputs)))
     check(all(x.is_cuda for x in leaves), "an image-path tensor left the GPU")
@@ -1537,7 +1574,7 @@ def phase_images(card: str, seq, render_s: float) -> dict:
     rpe = rpe_stats(poses[s:], gt[s:])
     ms_in = [e[0].elapsed_time(e[1]) for e in events]
     ms_step = [e[1].elapsed_time(e[2]) for e in events]
-    log(f"phase 6 images: {steps} frames ok: per frame {2 * LEVELS} lk_level "
+    log(f"phase 6 images: {steps} frames ok: per frame 1 lk_track "
         f"+ 1 zncc_gate + 0 slice_windows launches in track_frame and 1 "
         f"gather_neighbors in odometry_step (totals "
         f"{dict(zip(kernel_names, total))}), all tensors on "
@@ -1582,7 +1619,7 @@ def phase_images(card: str, seq, render_s: float) -> dict:
           f"eval_vo_sequence RPE {res['rpe_trans_rmse']:.4f} m, the frame "
           f"loop's {full['trans_rmse']:.4f} m")
     log(f"phase 6 images: eval_vo_sequence over the same frames in "
-        f"{eval_s:.3f} s: {klt.launches} lk_level + {klt.gate_launches} "
+        f"{eval_s:.3f} s: {klt.launches} lk_track + {klt.gate_launches} "
         f"zncc_gate + {windows.launches} slice_windows + "
         f"{neighbors.launches} gather_neighbors launches as the frame loop; "
         f"poses against the "
@@ -1801,7 +1838,7 @@ def phase_sequence(card: str, seq) -> dict:
     vseq = VelodyneOrder(seq)
     kw = dict(max_tracks=N, max_length=12, verbose=False, device=dev,
               seed=SEED)
-    kernel_names = ("lk_level", "zncc_gate", "slice_windows",
+    kernel_names = ("lk_track", "zncc_gate", "slice_windows",
                     "gather_neighbors")
 
     def launched():
@@ -1837,9 +1874,9 @@ def phase_sequence(card: str, seq) -> dict:
         per_frame = 2 if c_.do_use_depth_segmentation else 1
         out, ms, counts = timed(lambda: T.eval_depth_sequence(
             s_, c_, plane_mode=mode, **kw))
-        check(counts == (2 * LEVELS * steps, steps, 0, per_frame * steps),
+        check(counts == (steps, steps, 0, per_frame * steps),
               f"eval_depth_sequence ({name}) launched {counts} "
-              f"{kernel_names} in {steps} frames, want {2 * LEVELS} + 1 + 0 "
+              f"{kernel_names} in {steps} frames, want 1 + 1 + 0 "
               f"+ {per_frame} per frame")
         check(out["frames"] == steps and sum(out["counters"]) == out[
             "total_points"] > 0, f"eval_depth_sequence ({name}): {out}")
@@ -1871,7 +1908,7 @@ def phase_sequence(card: str, seq) -> dict:
     vo256, ms256, c256 = timed(lambda: T.eval_vo_sequence(seq, cfg, ocfg,
                                                           **kw))
     kitti_eval._CHUNK_FRAMES = SEQ_CHUNK
-    want = (2 * LEVELS * steps, steps, 0, steps)
+    want = (steps, steps, 0, steps)
     check(c4 == want and c256 == want,
           f"eval_vo_sequence launched {c4} and {c256}, want {want}")
     check(np.array_equal(vo4["poses"], vo256["poses"])
@@ -2307,9 +2344,9 @@ def phase_posegraph(card: str) -> dict:
     dev, cpu = torch.device("cuda"), torch.device("cpu")
     cfg, ocfg = T.DepthEstimatorConfig(), T.OdometryConfig()
     N = cfg.max_features
-    kernel_names = ("lk_level", "zncc_gate", "slice_windows",
+    kernel_names = ("lk_track", "zncc_gate", "slice_windows",
                     "gather_neighbors")
-    per_direction = (2 * LEVELS, 1, 0, 1)
+    per_direction = (1, 1, 0, 1)
 
     def launched():
         return (klt.launches, klt.gate_launches, windows.launches,
@@ -2412,7 +2449,7 @@ def phase_posegraph(card: str) -> dict:
     main_counts = dict(zip(kernel_names, launched()))
 
     steps = len(ids)
-    check(vo_counts == (2 * LEVELS * steps, steps, 0, steps),
+    check(vo_counts == (steps, steps, 0, steps),
           f"eval_vo_sequence over the loop launched {vo_counts} "
           f"{kernel_names}, want {per_direction} per frame")
     for ms, counts, places in directions:
@@ -2930,13 +2967,14 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build()
     info = dict(kernels.build_info)
-    for lib in ("windows", "lk_level", "gather_neighbors", "zncc_gate"):
+    for lib in ("windows", "lk_track", "gather_neighbors", "zncc_gate"):
         kernels.library(lib)
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if "registers" in ln or "spill" in ln]
     log(f"phase 2 build: {info['path']} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc, one process per source, {info['seconds']:.2f} s); ptxas: "
         f"{' | '.join(ptxas)}")
+    check_no_spills(info["log"], "lk_track.cu")
 
     from mono_lidar_depth_tpu_torch.io.synthetic_dataset import (
         SyntheticSpec, render_sequence)
@@ -2959,18 +2997,18 @@ def main() -> int:
     # Per kernel: `launches` of its main paths' runs (phase 4's
     # feature-fed path, phase 6's image-fed path, phase 7's sequence
     # evaluators, phase 8's loop closure and phase 9's ranks, each counted
-    # from 0 just before it; the LK level and the
+    # from 0 just before it; the LK passes and the
     # gate run on the image-fed paths only; the window crop is launched by
     # neither any more, so its count is 0, and phase 3 goes on holding it
     # bit-exact and timing it through its public entry point); ms,
     # plain_ms, bound_ms: device time of the kernel's launches in one
     # frame (slice_windows: the 2 ZNCC crops that one track_frame made
-    # until the gate took them over; lk_level: the 2 passes x 4 levels of
-    # one track_frame; gather_neighbors: the one launch of one odometry
-    # step; zncc_gate: the one launch of one track_frame).  library_ms:
-    # for slice_windows the indexing gather of the same crops on ready
-    # indices, for lk_level grid_sample doing the iterations' patch
-    # sampling alone, for gather_neighbors the four indexing gathers of
+    # until the gate took them over; lk_track: the one launch of one
+    # track_frame, both passes over all 4 levels; gather_neighbors: the
+    # one launch of one odometry step; zncc_gate: the one launch of one
+    # track_frame).  library_ms: for slice_windows the indexing gather of
+    # the same crops on ready indices, for lk_track grid_sample doing the
+    # iterations' patch sampling alone (2 x 4 x 8 calls), for gather_neighbors the four indexing gathers of
     # its crops alone (no decode), for zncc_gate two grid_sample calls
     # doing its patch sampling alone.
     log(json.dumps({"kernels": [
@@ -2983,10 +3021,10 @@ def main() -> int:
          "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
          "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
          "bound_by": "bytes", "library_ms": kern["library_ms"]},
-        {"name": "lk_level", "route": "cuda", "source": LK_SOURCE,
+        {"name": "lk_track", "route": "cuda", "source": LK_SOURCE,
          "replaces": REPLACES,
-         "launches": (img_launches["lk_level"] + seq_launches["lk_level"]
-                      + pg_launches["lk_level"]),
+         "launches": (img_launches["lk_track"] + seq_launches["lk_track"]
+                      + pg_launches["lk_track"]),
          "max_abs_err": lk["max_abs_err"], "ms": lk["ms"],
          "plain_ms": lk["plain_ms"], "bound_ms": lk["bound_ms"],
          "bound_by": lk["bound_by"], "library_ms": lk["library_ms"]},

@@ -6,8 +6,9 @@ tests/test_torch_*.py hold one against the other.  Plain tensor code is
 PyTorch; the one TPU kernel of the JAX package (window extraction) is
 hand-written CUDA: the literal crop (csrc/windows.cu) and one fused form
 per caller: the neighbor gather of the depth path
-(csrc/gather_neighbors.cu), the Lucas-Kanade level (csrc/lk_level.cu) and
-the acceptance gate (csrc/zncc_gate.cu) of the tracker.  Entry paths:
+(csrc/gather_neighbors.cu), the Lucas-Kanade passes over every pyramid
+level (csrc/lk_track.cu) and the acceptance gate (csrc/zncc_gate.cu) of
+the tracker.  Entry paths:
 `odometry_step` on given feature tracks, and the sequence evaluators
 `eval_vo_sequence` / `eval_depth_sequence` (or the per-frame
 `frame_inputs`) from grey images and lidar scans; the loop-closure

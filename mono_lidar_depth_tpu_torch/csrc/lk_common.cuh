@@ -1,4 +1,4 @@
-// Device helpers shared by the tracker's kernels (lk_level.cu,
+// Device helpers shared by the tracker's kernels (lk_track.cu,
 // zncc_gate.cu): the bilinear blend, the warp sum, the centre clamp.
 // Every float step uses a round-to-nearest intrinsic, which nvcc never
 // contracts into an FMA, in the order of tracker/klt.py's plain versions

@@ -24,8 +24,8 @@
 // sums -> gate.
 //
 // Design.  One warp per feature, kWarpsPerBlock = 4 features per
-// 128-thread block, as in lk_level.cu: 512 small blocks at N = 2048, about
-// 4 on each SM.  A lane holds T = ceil(patch^2 / 32) taps of each patch in
+// 128-thread block: 512 small blocks at N = 2048, about 4 on each SM.  A
+// lane holds T = ceil(patch^2 / 32) taps of each patch in
 // registers (3 at patch 9; instantiated for T = 1, 2, 3, 4, 6, 8, the
 // counts of the odd patches up to kMaxPatch = 15).  The two patches of a
 // feature do not depend on each other, so the 8 corner loads of every tap

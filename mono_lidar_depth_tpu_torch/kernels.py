@@ -40,14 +40,23 @@ class GatherScale(ctypes.Structure):
                 ("indices", _vp)]
 
 
+class LkLevel(ctypes.Structure):
+    """One pyramid level of csrc/lk_track.cu (MldLkLevel): both frames'
+    images, their shape and the clamp bounds of `_split_frac`."""
+
+    _fields_ = [("prev", _vp), ("next", _vp), ("H", ctypes.c_int32),
+                ("W", ctypes.c_int32), ("lo", _cf), ("hi_x", _cf),
+                ("hi_y", _cf)]
+
+
 # library (source stem) -> entry point -> argument types; every entry
 # point returns cudaGetLastError() as an int.
 _ENTRY_POINTS = {
     "windows": {"mld_slice_windows": [_vp, _vp, _vp, _vp,
                                       _ci, _ci, _ci, _ci, _ci, _ci, _vp]},
-    "lk_level": {"mld_lk_level": [_vp, _vp, _vp, _vp, _vp, _vp,
-                                  _ci, _ci, _ci, _ci, _ci,
-                                  _cf, _cf, _cf, _cf, _vp]},
+    "lk_track": {"mld_lk_track": [ctypes.POINTER(LkLevel), _ci,
+                                  _vp, _vp, _vp, _vp, _vp, _vp,
+                                  _ci, _ci, _ci, _cf, _vp]},
     "gather_neighbors": {"mld_gather_neighbors": [
         _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _cf, _cf, _cf,
         ctypes.POINTER(GatherScale), _ci, _vp]},

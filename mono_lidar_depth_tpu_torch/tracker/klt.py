@@ -16,18 +16,26 @@ Border semantics: centers are clamped into the image (plus `slack`) and
 the window is cut from an edge-replicated pad, which reproduces the
 per-tap clamping of a gather-based sampler for all in-image centers.
 
-One pyramid level (`_lk_level`) has two forms:
+The two LK passes of `track_features` (`_track_passes`: forward over
+every pyramid level, coarse to fine, then backward from the forward
+result) have three forms:
 
-  * `_lk_level_reference`: plain PyTorch — edge pad, window indexing,
-    `_lerp2`, `torch.sum`, a Python loop over the iterations.  The CPU
-    runs it, and the kernel is held against it.
-  * `_lk_level_cuda`: the hand-written Hopper kernel (csrc/lk_level.cu):
-    window, blend, normal equations and all iterations of a level in one
-    launch, on the unpadded images.  It is what the window-extraction
-    TPU kernel (core/pallas_windows.py, reached through `_windows`)
-    becomes for this caller.
-  * `_lk_level` dispatches: a CPU tensor takes the reference; a CUDA
+  * `_track_passes_reference`: plain PyTorch — `_pyramidal` twice over
+    `_lk_level_reference` (edge pad, window indexing, `_lerp2`,
+    `torch.sum`, a Python loop over the iterations).  The CPU runs it,
+    and the kernel is held against it.
+  * `_track_passes_cuda`: the hand-written Hopper kernel
+    (csrc/lk_track.cu): windows, blends, normal equations and all
+    iterations of every level of both passes in one launch, on the
+    unpadded images.  It is what the window-extraction TPU kernel
+    (core/pallas_windows.py, reached through `_windows`) becomes for this
+    caller.
+  * `_track_passes` dispatches: a CPU tensor takes the reference; a CUDA
     tensor launches the kernel or raises.  There is no fallback.
+
+`_lk_level` is one level in plain PyTorch (the JAX package's `_lk_level`)
+and takes CPU tensors only: on the card a level runs inside the one
+launch of `_track_passes`.
 
 The acceptance gate at the end of `track_features` (`_track_gate`) has
 the same three forms:
@@ -40,9 +48,9 @@ the same three forms:
     (csrc/zncc_gate.cu): all of that for every lane in one launch on the
     unpadded images; it writes `ok` and `ncc` and nothing else.  It is
     what the window-extraction TPU kernel becomes for the ZNCC caller.
-  * `_track_gate` dispatches as `_lk_level` does.
+  * `_track_gate` dispatches as `_track_passes` does.
 
-`launches` counts the level kernel's launches, `gate_launches` the gate
+`launches` counts the LK kernel's launches, `gate_launches` the gate
 kernel's.
 """
 
@@ -55,9 +63,10 @@ import torch.nn.functional as F
 from .. import kernels
 from ..core.windows import slice_windows_reference
 
-launches = 0  # _lk_level_cuda kernel launches since the last reset
+launches = 0  # _track_passes_cuda kernel launches since the last reset
 gate_launches = 0  # _track_gate_cuda kernel launches since the last reset
-MAX_PATCH = 15  # kMaxPatch of csrc/lk_level.cu and csrc/zncc_gate.cu
+MAX_PATCH = 15  # kMaxPatch of csrc/lk_track.cu and csrc/zncc_gate.cu
+MAX_LEVELS = 8  # kMaxLevels of csrc/lk_track.cu
 
 
 def build_pyramid(img: torch.Tensor, levels: int) -> list[torch.Tensor]:
@@ -182,62 +191,110 @@ def _lk_level_reference(prev_img, next_img, uv_prev, uv_guess, patch, iters,
     return uv, ok
 
 
-def _lk_level_cuda(prev_img, next_img, uv_prev, uv_guess, patch, iters,
-                   min_det):
-    """One pyramid level by the fused CUDA kernel: (uv_out [N, 2], ok [N]).
+def _lk_level(prev_img, next_img, uv_prev, uv_guess, patch, iters, min_det):
+    """One pyramid level in plain PyTorch, for CPU tensors.  On the card
+    the levels run only inside the single launch of `_track_passes`, so a
+    tensor elsewhere is refused."""
+    if prev_img.device.type != "cpu":
+        raise ValueError(f"_lk_level takes CPU tensors, got "
+                         f"{prev_img.device}; on the card the levels run "
+                         f"in _track_passes")
+    return _lk_level_reference(prev_img, next_img, uv_prev, uv_guess, patch,
+                               iters, min_det)
 
-    Takes contiguous f32 [H, W] images of one shape and contiguous f32
-    [N, 2] positions on one CUDA device, an odd `patch` of at most
+
+def _track_passes_reference(prev_pyr, next_pyr, uv, guess, patch, iters,
+                            min_det):
+    """Both LK passes of `track_features` in plain PyTorch: (uv_f, ok_f,
+    uv_b, ok_b).  The forward pass starts at `guess` (at `uv` when it is
+    None), the backward pass tracks uv_f back from `next_pyr` to
+    `prev_pyr` starting at `uv`."""
+    uv_f, ok_f = _pyramidal(prev_pyr, next_pyr, uv, patch, iters, min_det,
+                            guess=guess)
+    uv_b, ok_b = _pyramidal(next_pyr, prev_pyr, uv_f, patch, iters, min_det,
+                            guess=uv)
+    return uv_f, ok_f, uv_b, ok_b
+
+
+def _track_passes_cuda(prev_pyr, next_pyr, uv, guess, patch, iters,
+                       min_det):
+    """Both LK passes by the fused CUDA kernel, one launch: (uv_f [N, 2],
+    ok_f [N], uv_b [N, 2], ok_b [N]).
+
+    Takes two pyramids of 1 to MAX_LEVELS contiguous f32 [H, W] images,
+    equal in shape level by level, and contiguous f32 [N, 2] `uv` and
+    `guess`, all on one CUDA device, and an odd `patch` of at most
     MAX_PATCH; raises on anything else."""
     global launches
-    dev = prev_img.device
+    dev = uv.device
     if dev.type != "cuda":
-        raise ValueError(f"_lk_level_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"_track_passes_cuda needs CUDA tensors, got {dev}")
     if patch % 2 != 1 or not 1 <= patch <= MAX_PATCH:
         raise ValueError(f"patch must be odd and at most {MAX_PATCH}, "
                          f"got {patch}")
     if iters < 0:
         raise ValueError(f"iters must not be negative, got {iters}")
-    if prev_img.dim() != 2 or next_img.shape != prev_img.shape:
-        raise ValueError(f"images must be [H, W] of one shape, got "
-                         f"{tuple(prev_img.shape)}, {tuple(next_img.shape)}")
-    N = uv_prev.shape[0]
-    if tuple(uv_prev.shape) != (N, 2) or tuple(uv_guess.shape) != (N, 2):
-        raise ValueError(f"uv_prev and uv_guess must be [N, 2], got "
-                         f"{tuple(uv_prev.shape)}, {tuple(uv_guess.shape)}")
-    for name, t in (("prev_img", prev_img), ("next_img", next_img),
-                    ("uv_prev", uv_prev), ("uv_guess", uv_guess)):
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError(f"{name} must be f32 on {dev}, got {t.dtype} "
+    L = len(prev_pyr)
+    if not 1 <= L <= MAX_LEVELS:
+        raise ValueError(f"pyramids of 1 to {MAX_LEVELS} levels, got {L}")
+    if len(next_pyr) != L:
+        raise ValueError(f"the pyramids must have the same levels, got {L} "
+                         f"and {len(next_pyr)}")
+    N = uv.shape[0]
+    f32 = torch.float32
+    named = [("uv", uv, (N, 2)), ("guess", guess, (N, 2))]
+    for lvl, (a, b) in enumerate(zip(prev_pyr, next_pyr)):
+        if a.dim() != 2 or min(a.shape) < 1 or b.shape != a.shape:
+            raise ValueError(f"level {lvl}: images must be [H, W] of one "
+                             f"shape, got {tuple(a.shape)}, "
+                             f"{tuple(b.shape)}")
+        named += [(f"prev_pyr[{lvl}]", a, a.shape),
+                  (f"next_pyr[{lvl}]", b, a.shape)]
+    for name, t, shape in named:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be {list(shape)}, got "
+                             f"{list(t.shape)}")
+        if t.device != dev or t.dtype != f32:
+            raise ValueError(f"{name} must be {f32} on {dev}, got {t.dtype} "
                              f"on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    H, W = prev_img.shape
-    lo, hi_x, hi_y = _clamp_bounds(H, W, (patch - 1) // 2 + 1)
-    uv_out = torch.empty((N, 2), dtype=torch.float32, device=dev)
-    ok = torch.empty((N,), dtype=torch.bool, device=dev)
-    lib = kernels.library("lk_level")
+    r = (patch - 1) // 2
+    levels = (kernels.LkLevel * L)()
+    for lvl, (a, b) in enumerate(zip(prev_pyr, next_pyr)):
+        H, W = a.shape
+        levels[lvl] = kernels.LkLevel(a.data_ptr(), b.data_ptr(), H, W,
+                                      *_clamp_bounds(H, W, r + 1))
+    uv_f = torch.empty((N, 2), dtype=f32, device=dev)
+    uv_b = torch.empty((N, 2), dtype=f32, device=dev)
+    ok_f = torch.empty((N,), dtype=torch.bool, device=dev)
+    ok_b = torch.empty((N,), dtype=torch.bool, device=dev)
+    lib = kernels.library("lk_track")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.mld_lk_level(
-            prev_img.data_ptr(), next_img.data_ptr(), uv_prev.data_ptr(),
-            uv_guess.data_ptr(), uv_out.data_ptr(), ok.data_ptr(), H, W, N,
-            patch, iters, min_det, lo, hi_x, hi_y, stream)
-        kernels.check(lib, code, "lk_level kernel launch")
+        code = lib.mld_lk_track(
+            levels, L, uv.data_ptr(), guess.data_ptr(), uv_f.data_ptr(),
+            ok_f.data_ptr(), uv_b.data_ptr(), ok_b.data_ptr(), N, patch,
+            iters, min_det, stream)
+        kernels.check(lib, code, "lk_track kernel launch")
         launches += 1
-    return uv_out, ok
+    return uv_f, ok_f, uv_b, ok_b
 
 
-def _lk_level(prev_img, next_img, uv_prev, uv_guess, patch, iters, min_det):
-    """One pyramid level on the images' device: the fused CUDA kernel
-    for CUDA tensors, the plain reference for CPU tensors."""
-    if prev_img.device.type == "cuda":
-        return _lk_level_cuda(prev_img, next_img, uv_prev.contiguous(),
-                              uv_guess.contiguous(), patch, iters, min_det)
-    if prev_img.device.type == "cpu":
-        return _lk_level_reference(prev_img, next_img, uv_prev, uv_guess,
-                                   patch, iters, min_det)
-    raise ValueError(f"no LK level for device {prev_img.device}")
+def _track_passes(prev_pyr, next_pyr, uv, guess, patch, iters, min_det):
+    """Both LK passes on the pyramids' device: the fused CUDA kernel for
+    CUDA tensors, the plain reference for CPU tensors."""
+    dev = prev_pyr[0].device
+    if dev.type == "cuda":
+        return _track_passes_cuda(
+            [x.contiguous() for x in prev_pyr],
+            [x.contiguous() for x in next_pyr], uv.contiguous(),
+            (uv if guess is None else guess).contiguous(), patch, iters,
+            min_det)
+    if dev.type == "cpu":
+        return _track_passes_reference(prev_pyr, next_pyr, uv, guess, patch,
+                                       iters, min_det)
+    raise ValueError(f"no LK passes for device {dev}")
 
 
 def track_features(
@@ -273,11 +330,10 @@ def track_features(
         # r = (patch-1)//2, which silently shifts the grid for even
         # patch sizes — the symmetric-window assumption is structural.
         raise ValueError(f"patch size must be odd, got {patch}")
-    uv_f, ok_f = _pyramidal(prev_pyr, next_pyr, uv, patch, iters, min_det,
-                            guess=uv_guess)
-    # backward pass: the expected landing point is the forward start
-    uv_b, ok_b = _pyramidal(next_pyr, prev_pyr, uv_f, patch, iters, min_det,
-                            guess=uv)
+    # forward pass, then the backward pass: its expected landing point is
+    # the forward start
+    uv_f, ok_f, uv_b, ok_b = _track_passes(prev_pyr, next_pyr, uv, uv_guess,
+                                           patch, iters, min_det)
     ok, _ = _track_gate(prev_pyr[0], next_pyr[0], uv, uv_f, uv_b, valid,
                         ok_f, ok_b, patch, min_ncc, fb_threshold)
     return uv_f, ok
@@ -389,8 +445,8 @@ def _pyramidal(src_pyr, dst_pyr, uv, patch, iters, min_det, guess=None):
     ok_all = torch.ones(uv.shape[0], dtype=torch.bool, device=uv.device)
     for lvl in range(levels - 1, -1, -1):
         s = 2.0 ** lvl
-        guess, ok = _lk_level(src_pyr[lvl], dst_pyr[lvl], uv / s, guess,
-                              patch, iters, min_det)
+        guess, ok = _lk_level_reference(src_pyr[lvl], dst_pyr[lvl], uv / s,
+                                        guess, patch, iters, min_det)
         ok_all = ok_all & ok
         if lvl > 0:
             guess = guess * 2.0

@@ -3,7 +3,14 @@
 `track_frame` and of the two optional depth configurations goes, on one
 CUDA GPU.
 
-    python3 profile_step.py
+    python3 profile_step.py [TARGET ...]
+
+TARGET is any of TARGETS (odometry, track_frame, options, closure,
+pose_graph), each described below; no TARGET profiles them all, in that
+order.  To set two trees side by side in one session, copy this script
+into the root of the other tree (a `git archive` unpacked into a
+git-ignored directory) and run it there too, in turns: it then profiles
+that tree's package with this script's plan.
 
 First the odometry step.  Runs the port's main path on chip_smoke.py's scene (the reference
 defaults at the KITTI size, bench.py's synthetic clouds and tracks) for
@@ -25,9 +32,9 @@ Then the image path: 12 frames of the synthetic sequence at the KITTI
 size (chip_smoke.py's phase 6 settings) are rendered and moved to the
 card, `init_tracker` runs on the first, and `track_frame` on the others
 with the same plan (4 warm, 4 timed alone, 3 profiled), its stages being
-`build_pyramid`, `track_features` (8 `lk_level` launches and the one
-`zncc_gate` launch), `detect_features`, and the lane bookkeeping that
-remains.
+`build_pyramid`, `track_features` (the one `lk_track` launch of both LK
+passes and the one `zncc_gate` launch), `detect_features`, and the lane
+bookkeeping that remains.
 
 Then the optional configurations, on the same rendered frames with their
 scans in Velodyne order (io/synthetic_dataset.VelodyneOrder) and the tracker's
@@ -39,7 +46,7 @@ the RANSAC plane and then with the semantic plane (stage
 time and the activities that a configuration adds can be read off.
 
 Last the loop-closure backend: `closure_constraint_from_frames` on the
-first candidate pair of chip_smoke.py's 84-frame loop (the device call of
+first candidate pair of chip_smoke.py's 220-frame loop (the device call of
 each direction and its stages: corners, pyramids, KLT, RANSAC, depths,
 pose GN), and one Gauss-Newton iteration of `optimize_pose_graph` on
 chip_smoke.py's 4541-pose graph (stages: linearization, chain blocks, the
@@ -55,6 +62,7 @@ import numpy as np
 
 import chip_smoke as cs
 
+TARGETS = ("odometry", "track_frame", "options", "closure", "pose_graph")
 WARM, TIMED, PROFILED = 4, 4, 3
 # The pose graph at KITTI-00 scale: one GN iteration per call, fewer calls
 # (a call launches ~400,000 kernels).
@@ -118,10 +126,13 @@ def labelled_stages(stages=STAGES):
 
     modules = {"tracks": tracks, "vo": vo, "frontend": frontend,
                "depth": depth, "pg": pg, "closures": closures}
-    saved = []
+    saved, missing = [], []
     for mod_name, fn_name, label in stages:
         mod = modules[mod_name]
-        fn = getattr(mod, fn_name)
+        fn = getattr(mod, fn_name, None)
+        if fn is None:  # a stage this tree does not have
+            missing.append(f"{mod.__name__}.{fn_name}")
+            continue
         saved.append((mod, fn_name, fn))
 
         def wrapped(*args, _fn=fn, _label=label, **kwargs):
@@ -129,6 +140,8 @@ def labelled_stages(stages=STAGES):
                 return _fn(*args, **kwargs)
 
         setattr(mod, fn_name, wrapped)
+    if missing:
+        print(f"stages not in this tree, not profiled: {missing}")
     try:
         yield
     finally:
@@ -207,70 +220,117 @@ def main() -> int:
     import torch
     import mono_lidar_depth_tpu_torch as T
     from mono_lidar_depth_tpu_torch.eval.kitti_eval import _dev_img
-    from mono_lidar_depth_tpu_torch.io.synthetic_dataset import VelodyneOrder
 
+    targets = sys.argv[1:] or list(TARGETS)
+    unknown = sorted(set(targets) - set(TARGETS))
+    if unknown:
+        print(f"profile_step: unknown targets {unknown}; choose from "
+              f"{TARGETS}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 1
     card = cs.card_line()
     calls = WARM + TIMED + PROFILED
-    sc = cs.bench_scene(frames=calls)
-    state = cs.prime(sc)
-    frames = iter(sc.inputs)
+    dev = torch.device("cuda")
+    cfg = T.DepthEstimatorConfig(do_use_depth_segmentation=False)
+    ocfg = T.OdometryConfig()
+    print(f"profile_step: {targets} [{card}]")
 
-    def step():
-        nonlocal state
-        state, *_ = T.odometry_step(sc.cfg, sc.ocfg, sc.cam,
-                                    sc.lidar_to_cam, state, next(frames))
+    if "odometry" in targets:
+        sc = cs.bench_scene(frames=calls)
+        state = cs.prime(sc)
+        frames = iter(sc.inputs)
 
-    profile_calls("odometry step", step, STAGES, card)
+        def step():
+            nonlocal state
+            state, *_ = T.odometry_step(sc.cfg, sc.ocfg, sc.cam,
+                                        sc.lidar_to_cam, state, next(frames))
+
+        profile_calls("odometry step", step, STAGES, card)
 
     seq = T.render_sequence(T.SyntheticSpec(frames=calls + 1), seed=cs.SEED)
-    dev = torch.device("cuda")
-    imgs = iter([_dev_img(torch.from_numpy(seq.image(i)).to(dev))
-                 for i in range(len(seq))])
-    tstate = T.init_tracker(next(imgs), sc.cfg.max_features,
-                            levels=cs.LEVELS)
+    if "track_frame" in targets:
+        imgs = iter([_dev_img(torch.from_numpy(seq.image(i)).to(dev))
+                     for i in range(len(seq))])
+        tstate = T.init_tracker(next(imgs), cfg.max_features,
+                                levels=cs.LEVELS)
 
-    def track():
-        nonlocal tstate
-        tstate, _ = T.track_frame(tstate, next(imgs))
+        def track():
+            nonlocal tstate
+            tstate, _ = T.track_frame(tstate, next(imgs))
 
-    print()
-    profile_calls(f"track_frame ({sc.cfg.max_features} lanes, {cs.LEVELS} "
-                  f"levels, {seq.camera.width}x{seq.camera.height})", track,
-                  TRACK_STAGES, card)
-    # ---- the optional configurations on the rendered frames
+        print()
+        profile_calls(f"track_frame ({cfg.max_features} lanes, {cs.LEVELS} "
+                      f"levels, {seq.camera.width}x{seq.camera.height})",
+                      track, TRACK_STAGES, card)
+    if "options" in targets:
+        profile_options(T, seq, cfg, ocfg, dev, card)
+    if "closure" in targets:
+        from mono_lidar_depth_tpu_torch.vo import closures
+
+        loop = T.render_sequence(T.SyntheticSpec(
+            frames=cs.LOOP_FRAMES, step=0.55, loop=True), seed=cs.SEED)
+        i, j = closures.propose_loop_closures(loop.gt_poses,
+                                              **cs.LOOP_PROPOSE)[0]
+
+        def verify():
+            closures.closure_constraint_from_frames(
+                loop, cfg, i, j, max_features=cfg.max_features, device=dev)
+
+        print()
+        profile_calls(f"closure_constraint_from_frames, frames {i} and {j} "
+                      f"of the {cs.LOOP_FRAMES}-frame loop (both directions, "
+                      f"{loop.camera.width}x{loop.camera.height})", verify,
+                      CLOSURE_STAGES, card)
+    if "pose_graph" in targets:
+        from mono_lidar_depth_tpu_torch.vo import pose_graph as pg
+
+        graph = cs.kitti00_graph(dev)
+
+        def gn_iteration():
+            pg.optimize_pose_graph(graph, gn_iters=1, cg_iters=cs.PG_CG_ITERS)
+
+        print()
+        profile_calls(f"optimize_pose_graph, one GN iteration at "
+                      f"{cs.KITTI00_POSES} poses (cg_iters={cs.PG_CG_ITERS})",
+                      gn_iteration, PG_STAGES, card, plan=PG_PLAN)
+    print(card)
+    return 0
+
+
+def profile_options(T, seq, cfg, ocfg, dev, card) -> None:
+    """The optional configurations on the rendered frames, their scans in
+    Velodyne order and the tracker's outputs made beforehand."""
+    from mono_lidar_depth_tpu_torch.io.synthetic_dataset import VelodyneOrder
+
     vseq = VelodyneOrder(seq)
     l2c = seq.lidar_to_cam(dev)
     prime: list = []
     inputs = [f for f, _ in T.frame_inputs(
-        vseq, sc.cfg, prime=prime, pyramid_levels=cs.LEVELS,
+        vseq, cfg, prime=prime, pyramid_levels=cs.LEVELS,
         use_semantics=True, device=dev, seed=cs.SEED)]
     cloud0, valid0, sem0 = prime[0]
     cfg_rg = T.DepthEstimatorConfig(do_use_depth_segmentation=True)
 
-    def odometry_on(cfg):
-        state = T.OdometryState.create(cfg, sc.ocfg, cfg.max_features, 12,
-                                       dev)
+    def odometry_on(c):
+        state = T.OdometryState.create(c, ocfg, c.max_features, 12, dev)
         state = state._replace(tracklets=T.prime_state(
-            cfg, seq.camera, l2c, state.tracklets, cloud0, valid0,
-            torch.Generator(device=dev).manual_seed(cs.SEED)))
+            c, seq.camera, l2c, state.tracklets, cloud0, valid0,
+            torch_generator(dev)))
         it = iter(inputs)
 
         def step():
             nonlocal state
             state, *_ = T.odometry_step(
-                cfg, sc.ocfg, seq.camera, l2c, state,
+                c, ocfg, seq.camera, l2c, state,
                 next(it)._replace(semantic=None))
         return step
 
     def process_on(semantic: bool):
-        state = T.TrackletDepthState.create(sc.cfg, sc.cfg.max_features, 12,
-                                            dev)
+        state = T.TrackletDepthState.create(cfg, cfg.max_features, 12, dev)
         state = T.prime_state(
-            sc.cfg, seq.camera, l2c, state, cloud0, valid0,
-            torch.Generator(device=dev).manual_seed(cs.SEED),
+            cfg, seq.camera, l2c, state, cloud0, valid0, torch_generator(dev),
             semantic=sem0 if semantic else None)
         it = iter(inputs)
 
@@ -278,13 +338,13 @@ def main() -> int:
             nonlocal state
             frame = next(it)
             state, *_ = T.process_frame(
-                sc.cfg, seq.camera, l2c, state,
+                cfg, seq.camera, l2c, state,
                 frame if semantic else frame._replace(semantic=None))
         return step
 
     for what, call in (
             ("odometry step on the rendered frames, defaults",
-             odometry_on(sc.cfg)),
+             odometry_on(cfg)),
             ("odometry step on the rendered frames, region growing on",
              odometry_on(cfg_rg)),
             ("process_frame on the rendered frames, RANSAC plane",
@@ -294,36 +354,11 @@ def main() -> int:
         print()
         profile_calls(what, call, OPTION_STAGES, card)
 
-    # ---- the loop-closure backend: one verification pair at the KITTI
-    # size, and the pose graph alone at KITTI-00 scale
-    from mono_lidar_depth_tpu_torch.vo import closures
-    from mono_lidar_depth_tpu_torch.vo import pose_graph as pg
 
-    loop = T.render_sequence(T.SyntheticSpec(frames=cs.LOOP_FRAMES, step=0.55,
-                                             loop=True), seed=cs.SEED)
-    i, j = closures.propose_loop_closures(loop.gt_poses,
-                                          **cs.LOOP_PROPOSE)[0]
+def torch_generator(dev):
+    import torch
 
-    def verify():
-        closures.closure_constraint_from_frames(
-            loop, sc.cfg, i, j, max_features=sc.cfg.max_features, device=dev)
-
-    print()
-    profile_calls(f"closure_constraint_from_frames, frames {i} and {j} of "
-                  f"the {cs.LOOP_FRAMES}-frame loop (both directions, "
-                  f"{loop.camera.width}x{loop.camera.height})", verify,
-                  CLOSURE_STAGES, card)
-    graph = cs.kitti00_graph(dev)
-
-    def gn_iteration():
-        pg.optimize_pose_graph(graph, gn_iters=1, cg_iters=cs.PG_CG_ITERS)
-
-    print()
-    profile_calls(f"optimize_pose_graph, one GN iteration at "
-                  f"{cs.KITTI00_POSES} poses (cg_iters={cs.PG_CG_ITERS})",
-                  gn_iteration, PG_STAGES, card, plan=PG_PLAN)
-    print(card)
-    return 0
+    return torch.Generator(device=dev).manual_seed(cs.SEED)
 
 
 if __name__ == "__main__":

@@ -23,7 +23,7 @@ from mono_lidar_depth_tpu.tracker import klt as jklt
 from mono_lidar_depth_tpu_torch.core import windows as twindows
 from mono_lidar_depth_tpu_torch.tracker import klt as tklt
 
-import torch_parity  # noqa: F401  (one torch thread per worker)
+from torch_parity import OnCard as _OnCard
 
 NCC_TOL = 1e-6
 FLAT_DEN, FLAT_NCC = 1e-6, 1e-3  # observed on flat lanes: |ncc| <= 2.4e-4
@@ -205,8 +205,8 @@ def test_track_gate_takes_the_plain_version_on_the_cpu():
 
 def test_track_features_ends_in_the_gate(monkeypatch):
     """`track_features` hands the gate its two finest images, the start
-    positions, both passes' results and flags, and returns the gate's
-    `ok` with the forward positions."""
+    positions, both passes' results and flags (`_track_passes`), and
+    returns the gate's `ok` with the forward positions."""
     case, _ = gate_case(7, 64, 96, 256)
     img0, img1, uv, _, _, valid, _, _ = map(t, case)
     pyr0, pyr1 = tklt.build_pyramid(img0, 2), tklt.build_pyramid(img1, 2)
@@ -224,9 +224,11 @@ def test_track_features_ends_in_the_gate(monkeypatch):
     assert a[3] is uv_f and a[5] is valid and a[8:] == (7, 0.5, 0.8)
     want, _ = tklt._track_gate_reference(*a)
     assert torch.equal(ok, want)
-    back, ok_b = tklt._pyramidal(pyr1, pyr0, uv_f, 7, 8, 1e-4, guess=uv)
+    fwd, ok_f, back, ok_b = tklt._track_passes_reference(pyr0, pyr1, uv, None,
+                                                         7, 8, 1e-4)
+    assert torch.equal(uv_f.nan_to_num(7.0), fwd.nan_to_num(7.0))
     assert torch.equal(a[4].nan_to_num(7.0), back.nan_to_num(7.0))
-    assert torch.equal(a[7], ok_b)
+    assert torch.equal(a[6], ok_f) and torch.equal(a[7], ok_b)
 
 
 def _cuda_args():
@@ -239,23 +241,6 @@ def test_track_gate_cuda_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tklt._track_gate_cuda(*_cuda_args(), 9, MIN_NCC, FB_THRESHOLD)
     assert tklt.gate_launches == 0
-
-
-class _OnCard:
-    """Stands in for a tensor on a card in the argument checks, which
-    read only these attributes and run before any library is loaded."""
-
-    def __init__(self, real, dtype=None, contiguous=True, shape=None):
-        self.device = torch.device("cuda", 0)
-        self.dtype = dtype or real.dtype
-        self.shape = torch.Size(shape or real.shape)
-        self._contiguous = contiguous
-
-    def dim(self):
-        return len(self.shape)
-
-    def is_contiguous(self):
-        return self._contiguous
 
 
 @pytest.mark.parametrize("what,match", [

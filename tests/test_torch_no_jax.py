@@ -32,7 +32,8 @@ PKG = REPO / "mono_lidar_depth_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "mono_lidar_depth_tpu")
 LAZY_ONLY = ("PIL", "yaml")  # may be imported inside a function only
 SCRIPTS = ["chip_smoke.py", "profile_step.py", "gate_variants.py",
-           "scripts/run_kitti_torch.py", "__graft_entry_torch__.py"]
+           "lk_scaling.py", "scripts/run_kitti_torch.py",
+           "__graft_entry_torch__.py"]
 
 
 def _port_modules():
@@ -44,7 +45,7 @@ def test_port_imports_no_jax():
     code = (
         "import sys, importlib\n"
         f"for m in {_port_modules()!r} + ['mono_lidar_depth_tpu_torch', "
-        "'chip_smoke', 'profile_step', 'gate_variants', "
+        "'chip_smoke', 'profile_step', 'gate_variants', 'lk_scaling', "
         "'__graft_entry_torch__']:\n"
         "    importlib.import_module(m)\n"
         "import importlib.util as u\n"
@@ -119,16 +120,17 @@ def test_kernel_source_is_bound(source):
 
 
 def test_gate_kernel_is_bound_and_shares_the_lk_helpers():
-    """The fused gate is the fourth library; it and the LK level take
+    """The fused gate is the fourth library; it and the LK passes take
     their blend, warp sum and centre clamp from one header, which defines
     them once."""
     from mono_lidar_depth_tpu_torch import kernels
 
-    assert set(kernels._ENTRY_POINTS) == {"windows", "lk_level",
+    assert set(kernels._ENTRY_POINTS) == {"windows", "lk_track",
                                           "gather_neighbors", "zncc_gate"}
     assert len(kernels._ENTRY_POINTS["zncc_gate"]["mld_zncc_gate"]) == 22
+    assert len(kernels._ENTRY_POINTS["lk_track"]["mld_lk_track"]) == 13
     header = (PKG / "csrc" / "lk_common.cuh").read_text()
-    for source in ("lk_level.cu", "zncc_gate.cu"):
+    for source in ("lk_track.cu", "zncc_gate.cu"):
         text = (PKG / "csrc" / source).read_text()
         assert '#include "lk_common.cuh"' in text
         for helper in ("lerp2", "warp_sum", "split_frac", "clampi"):
@@ -173,6 +175,26 @@ def test_gather_scale_layout_matches_the_source():
     assert py_fields == [(n, size.get(t, 8)) for n, t in c_fields]
     assert ctypes.sizeof(kernels.GatherScale) == 64
     assert "gather_neighbors" in kernels._ENTRY_POINTS
+
+
+def test_lk_level_layout_matches_the_source():
+    """kernels.LkLevel mirrors `struct MldLkLevel` field for field: names,
+    order, sizes; and MAX_LEVELS and MAX_PATCH are the source's."""
+    from mono_lidar_depth_tpu_torch import kernels
+    from mono_lidar_depth_tpu_torch.tracker import klt
+
+    text = (PKG / "csrc" / "lk_track.cu").read_text()
+    body = re.search(r"struct MldLkLevel \{(.*?)\};", text, re.S).group(1)
+    body = re.sub(r"//.*", "", body)
+    c_fields = []
+    for ctype, names in re.findall(r"(\w+\*?)\s+([\w, ]+);", body):
+        c_fields += [(n.strip(), ctype) for n in names.split(",")]
+    size = {"float": 4, "int32_t": 4}
+    py_fields = [(n, ctypes.sizeof(t)) for n, t in kernels.LkLevel._fields_]
+    assert py_fields == [(n, size.get(t, 8)) for n, t in c_fields]
+    assert ctypes.sizeof(kernels.LkLevel) == 40
+    assert f"kMaxLevels = {klt.MAX_LEVELS};" in text
+    assert f"kMaxPatch = {klt.MAX_PATCH};" in text
 
 
 def _public_callables():

@@ -28,7 +28,7 @@ from mono_lidar_depth_tpu_torch.tracker import frontend as tfe
 from mono_lidar_depth_tpu_torch.tracker import harris as tharris
 from mono_lidar_depth_tpu_torch.tracker import klt as tklt
 
-from torch_parity import assert_trees_equal, to_numpy, to_port
+from torch_parity import OnCard, assert_trees_equal, to_numpy, to_port
 
 H, W, LANES, LEVELS = 128, 192, 64, 3
 
@@ -223,15 +223,144 @@ def test_lk_level(seed, patch, iters):
 
 
 def test_lk_level_dispatch():
-    """A CPU tensor takes the plain version; a CUDA-only entry refuses
-    it rather than fall back."""
+    """A CPU tensor takes the plain versions: of one level, and of both
+    passes with and without a guess.  The CUDA-only wrapper of the passes
+    refuses it rather than fall back, and one level refuses a tensor on a
+    card (there the levels run only inside the passes' launch)."""
     img0, img1, uv, guess = _level_case(0)
     a = tklt._lk_level(t(img0), t(img1), t(uv), t(guess), 9, 8, 1e-4)
     b = tklt._lk_level_reference(t(img0), t(img1), t(uv), t(guess), 9, 8,
                                  1e-4)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    pyr0 = tklt.build_pyramid(t(img0), LEVELS)
+    pyr1 = tklt.build_pyramid(t(img1), LEVELS)
+    for g in (t(guess), None):
+        got = tklt._track_passes(pyr0, pyr1, t(uv), g, 9, 8, 1e-4)
+        want = tklt._track_passes_reference(pyr0, pyr1, t(uv), g, 9, 8, 1e-4)
+        assert len(got) == 4
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    # no guess: the forward pass starts at uv
+    same = tklt._track_passes_reference(pyr0, pyr1, t(uv), t(uv), 9, 8, 1e-4)
+    assert all(torch.equal(x, y) for x, y in zip(got, same))
     with pytest.raises(ValueError, match="CUDA"):
-        tklt._lk_level_cuda(t(img0), t(img1), t(uv), t(guess), 9, 8, 1e-4)
+        tklt._track_passes_cuda(pyr0, pyr1, t(uv), t(guess), 9, 8, 1e-4)
+    with pytest.raises(ValueError, match="CPU tensors"):
+        tklt._lk_level(OnCard(t(img0)), OnCard(t(img1)), t(uv), t(guess), 9,
+                       8, 1e-4)
+    assert tklt.launches == 0
+
+
+@pytest.mark.parametrize("levels", [1, 3, 4])
+@pytest.mark.parametrize("patch", [5, 9, 15])
+def test_track_passes_reference_matches_jax(levels, patch):
+    """Both passes of the port's plain version against the JAX package's
+    `_pyramidal` forward, then backward from the forward result, on the
+    same numpy pyramids, from the corners `track_features` is given (the
+    border cases are held level by level in `test_lk_level`); the
+    tolerance of `test_track_features`."""
+    seed = levels + patch
+    img0 = textured(seed)
+    img1 = shifted(img0, 3.1, -1.7)
+    juv0, _ = jharris.detect_features(jnp.asarray(img0), LANES)
+    uv = np.asarray(juv0)
+    guess = (uv + np.float32([3.1, -1.7]) + np.random.default_rng(
+        seed).normal(0, 0.7, uv.shape)).astype(np.float32)
+    jp0 = jklt.build_pyramid(jnp.asarray(img0), levels)
+    jp1 = jklt.build_pyramid(jnp.asarray(img1), levels)
+    juv_f, jok_f = jklt._pyramidal(jp0, jp1, jnp.asarray(uv), patch, 8, 1e-4,
+                                   guess=jnp.asarray(guess))
+    juv_b, jok_b = jklt._pyramidal(jp1, jp0, juv_f, patch, 8, 1e-4,
+                                   guess=jnp.asarray(uv))
+    tp0 = [t(np.asarray(x)) for x in jp0]
+    tp1 = [t(np.asarray(x)) for x in jp1]
+    uv_f, ok_f, uv_b, ok_b = tklt._track_passes_reference(
+        tp0, tp1, t(uv), t(guess), patch, 8, 1e-4)
+    assert uv_f.dtype == uv_b.dtype == torch.float32
+    assert ok_f.dtype == ok_b.dtype == torch.bool
+    _uv_ok_agreement(uv_f, ok_f, juv_f, jok_f, 1e-4, 0.995)
+    # The backward pass on the lanes that can pass the gate's
+    # forward-backward test (back within 1 px in JAX, forward well
+    # conditioned in both): a lane that lost its track wanders tens of px
+    # and carries the two rounding orders apart (3.1e-3 px on one such
+    # lane of 64).
+    back = (ok_f.numpy() & np.asarray(jok_f)
+            & (np.linalg.norm(np.asarray(juv_b) - uv, axis=1) < 1.0))
+    assert back.mean() > 0.75
+    _uv_ok_agreement(uv_b, ok_b & t(back), juv_b, np.asarray(jok_b) & back,
+                     1e-4, 0.995)
+    # the passes did track: the forward pass found the shift
+    moved = (uv_f.numpy() - uv)[ok_f.numpy()]
+    assert np.median(np.abs(moved - [3.1, -1.7])) < 0.1
+
+
+@pytest.mark.parametrize("what,match", [
+    ("even patch", "patch must be odd"),
+    ("patch 17", "patch must be odd and at most 15"),
+    ("negative iters", "iters must not be negative"),
+    ("no levels", "pyramids of 1 to 8 levels, got 0"),
+    ("too many levels", "pyramids of 1 to 8 levels, got 9"),
+    ("level counts", "the pyramids must have the same levels, got 4 and 3"),
+    ("level shapes", r"level 2: images must be \[H, W\] of one shape"),
+    ("empty level", r"level 3: images must be \[H, W\]"),
+    ("3-d image", r"level 0: images must be \[H, W\]"),
+    ("f64 image", r"prev_pyr\[1\] must be torch.float32"),
+    ("f64 guess", "guess must be torch.float32"),
+    ("uv shape", r"uv must be \[64, 2\]"),
+    ("guess rows", r"guess must be \[64, 2\]"),
+    ("strided uv", "uv must be contiguous"),
+    ("strided image", r"next_pyr\[0\] must be contiguous"),
+    ("other device", "guess must be torch.float32 on cuda:0"),
+    ("image on the cpu", r"next_pyr\[2\] must be torch.float32 on cuda:0, "
+                         "got torch.float32 on cpu"),
+])
+def test_track_passes_cuda_argument_checks(what, match):
+    """Every refusal of the passes' wrapper, reached with stand-ins for
+    tensors on a card: patch, iterations, level count, pyramids that do
+    not match level for level, dtype, shape, stride, device."""
+    img0, img1, uv, guess = _level_case(0)
+    real0 = tklt.build_pyramid(t(img0), 4)
+    real1 = tklt.build_pyramid(t(img1), 4)
+    pyr0, pyr1 = [OnCard(x) for x in real0], [OnCard(x) for x in real1]
+    f_uv, f_guess = OnCard(t(uv)), OnCard(t(guess))
+    patch, iters = 9, 8
+    if what == "even patch":
+        patch = 8
+    elif what == "patch 17":
+        patch = 17
+    elif what == "negative iters":
+        iters = -1
+    elif what == "no levels":
+        pyr0, pyr1 = [], []
+    elif what == "too many levels":
+        pyr0, pyr1 = pyr0 * 2 + pyr0[:1], pyr1 * 2 + pyr1[:1]
+    elif what == "level counts":
+        pyr1 = pyr1[:3]
+    elif what == "level shapes":
+        pyr1[2] = OnCard(real1[2], shape=(32, 47))
+    elif what == "empty level":
+        pyr0[3] = OnCard(real0[3], shape=(0, 24))
+        pyr1[3] = OnCard(real1[3], shape=(0, 24))
+    elif what == "3-d image":
+        pyr0[0] = OnCard(real0[0], shape=(1, 128, 192))
+    elif what == "f64 image":
+        pyr0[1] = OnCard(real0[1], dtype=torch.float64)
+    elif what == "f64 guess":
+        f_guess = OnCard(t(guess), dtype=torch.float64)
+    elif what == "uv shape":
+        f_uv = OnCard(t(uv), shape=(64, 3))
+    elif what == "guess rows":
+        f_guess = OnCard(t(guess), shape=(63, 2))
+    elif what == "strided uv":
+        f_uv = OnCard(t(uv), contiguous=False)
+    elif what == "strided image":
+        pyr1[0] = OnCard(real1[0], contiguous=False)
+    elif what == "other device":
+        f_guess.device = torch.device("cuda", 1)
+    elif what == "image on the cpu":
+        pyr1[2] = real1[2]
+    with pytest.raises(ValueError, match=match):
+        tklt._track_passes_cuda(pyr0, pyr1, f_uv, f_guess, patch, iters,
+                                1e-4)
     assert tklt.launches == 0
 
 
@@ -377,10 +506,17 @@ def test_dev_img_scaling():
 
 
 def test_plain_paths_launch_no_kernel():
-    """On the CPU neither wrapper counts a launch."""
-    before = (tklt.launches, twindows.launches)
+    """On the CPU no tracker wrapper counts a launch: not `track_frame`,
+    not `track_features` and not the passes' dispatcher."""
+    before = (tklt.launches, tklt.gate_launches, twindows.launches)
     img = textured(0)
     ts = tfe.init_tracker(t(img), LANES, levels=LEVELS)
     tfe.track_frame(ts, t(shifted(img, 1.5, 1)))
-    assert (tklt.launches, twindows.launches) == before
+    pyr0 = tklt.build_pyramid(t(img), LEVELS)
+    pyr1 = tklt.build_pyramid(t(shifted(img, 1.5, 1)), LEVELS)
+    uv, valid = tharris.detect_features(t(img), LANES)
+    tklt.track_features(pyr0, pyr1, uv, valid)
+    tklt._track_passes(pyr0, pyr1, uv, None, 9, 8, 1e-4)
+    assert (tklt.launches, tklt.gate_launches, twindows.launches) == before
+    assert tklt.launches == 0
     assert "device" not in inspect.signature(tfe.track_frame).parameters

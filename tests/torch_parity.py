@@ -97,3 +97,21 @@ def assert_trees_equal(got, want, path="", atol=0.0, rtol=0.0):
     else:
         np.testing.assert_allclose(got, want, atol=atol, rtol=rtol,
                                    err_msg=path)
+
+
+class OnCard:
+    """Stands in for a tensor on a card in a kernel wrapper's argument
+    checks, which read only these attributes and run before any library
+    is loaded."""
+
+    def __init__(self, real, dtype=None, contiguous=True, shape=None):
+        self.device = torch.device("cuda", 0)
+        self.dtype = dtype or real.dtype
+        self.shape = torch.Size(shape or real.shape)
+        self._contiguous = contiguous
+
+    def dim(self):
+        return len(self.shape)
+
+    def is_contiguous(self):
+        return self._contiguous
