@@ -94,7 +94,6 @@ from __future__ import annotations
 
 import json
 import math
-import subprocess
 import sys
 import time
 from typing import NamedTuple
@@ -178,8 +177,6 @@ BACKEND_TOL = (1e-3, 5e-3)
 KITTI00_POSES = 4541
 PG_GN_ITERS, PG_CG_ITERS = 4, 250
 KITTI00_TOL = (1e-6, 2e-4)
-KITTI_CAMERA = dict(width=1226, height=370, focal_length=707.0, cx=601.8,
-                    cy=183.1)
 # Phase 9: the three sharded programs of __graft_entry_torch__'s dryrun at
 # its KITTI shapes, on DIST_RANKS gloo ranks sharing the card (one frame
 # and 1,024 landmarks each) and on one NCCL rank; BA against the single-
@@ -194,8 +191,7 @@ DIST_PG = dict(gn_iters=2, cg_iters=10)
 DIST_BA_TOL = (1e-3, 1e-4, 1e-3, 1e-2)
 DIST_BA_COST_ATOL = 1e-9
 DIST_TIMED_ITERS = 5  # BA iterations per timing
-R_LC = np.array([[0, -1, 0], [0, 0, -1], [1, 0, 0]], dtype=np.float32)
-T_LC = np.array([0.0, -0.08, 0.27], dtype=np.float32)
+BENCH_FRAMES = 8  # frames of phase 10's bench_torch run
 
 
 def check_no_spills(build_log: str, source: str) -> None:
@@ -223,14 +219,6 @@ def log(*parts) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, reps: int = 50) -> float:
@@ -707,6 +695,7 @@ def phase_gather(card: str) -> dict:
     """The fused neighbor gather against its plain version on rasterized
     synthetic scans, at the main path's shapes and around them."""
     import torch
+    import bench_torch
     import mono_lidar_depth_tpu_torch as T
     from mono_lidar_depth_tpu_torch.core import neighbors
     from mono_lidar_depth_tpu_torch.io.kitti import (make_synthetic_scan,
@@ -716,8 +705,7 @@ def phase_gather(card: str) -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    cam = T.PinholeCamera(**KITTI_CAMERA)
-    l2c = T.SE3(torch.from_numpy(R_LC).to(dev), torch.from_numpy(T_LC).to(dev))
+    cam, l2c = bench_torch.camera_and_extrinsics(dev)
     N = 2048
 
     def frames_of(cfg, count):
@@ -1151,45 +1139,28 @@ class Scene(NamedTuple):
 
 
 def bench_scene(frames: int = FRAMES) -> Scene:
-    """The reference defaults at the full KITTI size, the KITTI camera
-    and extrinsics, and bench.py's scene: distinct 120,000-point
-    synthetic clouds and persistent drifting tracks from SEED, made in
-    bulk and moved to the card before the run."""
+    """bench_torch's scene (bench.py's: the reference defaults at the full
+    KITTI size, the KITTI camera and extrinsics, distinct 120,000-point
+    synthetic clouds and persistent drifting tracks from SEED) over
+    frames + 1 frames, moved to the card in bulk before the run: frame
+    0's cloud is the one prime_state installs, frames 1..frames are the
+    odometry steps, all drawing RANSAC from one generator."""
     import torch
+    import bench_torch
     import mono_lidar_depth_tpu_torch as T
-    from mono_lidar_depth_tpu_torch.io.kitti import (make_synthetic_scan,
-                                                     pad_cloud)
 
     dev = torch.device("cuda")
-    cfg = T.DepthEstimatorConfig(do_use_depth_segmentation=False)
-    ocfg = T.OdometryConfig()
-    M = cfg.max_features
-    rng = np.random.default_rng(SEED)
-    clouds = [pad_cloud(s, len(s), cfg.max_points) for s in
-              (make_synthetic_scan(rng, 120000) for _ in range(frames + 1))]
-    base_uv = rng.uniform([8, 8], [1218, 362], (M, 2))
-    drift = rng.normal(0.0, 1.5, (frames + 1, M, 2))
-    uv = np.clip(base_uv[None] + np.cumsum(drift, axis=0), [1, 1],
-                 [1225, 369]).astype(np.float32)
+    bench = bench_torch.bench_scene(frames + 1)
+    cfg, ocfg = bench.cfg, T.OdometryConfig()
+    cam, lidar_to_cam = bench_torch.camera_and_extrinsics(dev)
+    stacked = bench_torch.scene_frames(bench, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    ids = torch.arange(M, dtype=torch.int32, device=dev)
-    ids_valid = torch.ones(M, dtype=torch.bool, device=dev)
-    inputs = [T.FrameInput(
-        cloud=torch.from_numpy(clouds[k][0]).to(dev),
-        cloud_valid=torch.from_numpy(clouds[k][1]).to(dev),
-        ids=ids, ids_valid=ids_valid,
-        uv_new=torch.from_numpy(uv[k]).to(dev),
-        uv_prev=torch.from_numpy(uv[k - 1]).to(dev),
-        stamp=torch.tensor(0.1 * k, device=dev), rng=gen)
-        for k in range(1, frames + 1)]
     scene = Scene(
-        cfg=cfg, ocfg=ocfg, cam=T.PinholeCamera(**KITTI_CAMERA),
-        lidar_to_cam=T.SE3(torch.from_numpy(R_LC).to(dev),
-                           torch.from_numpy(T_LC).to(dev)),
-        state=T.OdometryState.create(cfg, ocfg, M, 12, dev),
-        cloud0=torch.from_numpy(clouds[0][0]).to(dev),
-        valid0=torch.from_numpy(clouds[0][1]).to(dev), gen=gen,
-        inputs=inputs)
+        cfg=cfg, ocfg=ocfg, cam=cam, lidar_to_cam=lidar_to_cam,
+        state=T.OdometryState.create(cfg, ocfg, cfg.max_features, 12, dev),
+        cloud0=stacked.cloud[0], valid0=stacked.cloud_valid[0], gen=gen,
+        inputs=[bench_torch.frame_at(stacked, k, gen)
+                for k in range(1, frames + 1)])
     torch.cuda.synchronize()
     return scene
 
@@ -1339,6 +1310,8 @@ def _small_world(rng, F, M, P, cam):
     """A metric world (ground + facades) seen from a camera driving 1 m
     per frame with a slight yaw: clouds in the lidar frame, persistent
     feature tracks with 0.2 px noise, and the true camera centers."""
+    from bench_torch import R_LC
+
     n_g = 3000
     ground = np.stack([rng.uniform(-12, 12, n_g),
                        1.5 + 0.01 * rng.normal(size=n_g),
@@ -1381,6 +1354,7 @@ def _small_world(rng, F, M, P, cam):
 
 def phase_agree(card: str) -> None:
     import torch
+    import bench_torch
     import mono_lidar_depth_tpu_torch as T
     from mono_lidar_depth_tpu_torch.core.ransac import RansacDraws
 
@@ -1398,7 +1372,7 @@ def phase_agree(card: str) -> None:
              for _ in range(F)]
 
     def run(dev):
-        lidar_to_cam = T.SE3(torch.from_numpy(R_LC).to(dev),
+        lidar_to_cam = T.SE3(torch.from_numpy(bench_torch.R_LC).to(dev),
                              torch.zeros(3, device=dev))
         camera = T.PinholeCamera(**cam)
         state = T.OdometryState.create(cfg, ocfg, M, 8, dev)
@@ -2946,6 +2920,162 @@ def phase_dist(card: str) -> dict:
     return {"gather_neighbors": sum(launches)}
 
 
+# -------------------------------------------------------------- phase 10
+
+def bench_py_keys() -> list:
+    """The keys of bench.py's JSON line, in order, read from its source:
+    the printed dict's own keys, then `spread_pct_` + each key of its
+    `legs` dict, which it splices in with `**spreads`."""
+    import ast
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "bench.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    legs, printed = None, None
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and [t.id for t in node.targets
+                     if isinstance(t, ast.Name)] == ["legs"]):
+            legs = [k.value for k in node.value.keys]
+        if (isinstance(node, ast.Call)
+                and ast.unparse(node.func) == "json.dumps"
+                and node.args and isinstance(node.args[0], ast.Dict)):
+            printed = node.args[0].keys
+    keys = []
+    for k in printed:
+        keys += ([f"spread_pct_{leg}" for leg in legs] if k is None
+                 else [k.value])
+    return keys
+
+
+def phase_bench(card: str) -> dict:
+    """bench_torch.run on the card at the full width, BENCH_FRAMES frames
+    and one rep; then fast rasterization card against CPU on frames 0-1
+    of its scene."""
+    import contextlib
+    import io
+
+    import torch
+    import bench_torch
+    import mono_lidar_depth_tpu_torch as T
+    from mono_lidar_depth_tpu_torch.core.projection import (
+        build_frame_cloud, rasterize_projected)
+    from mono_lidar_depth_tpu_torch.core.ransac import RansacDraws
+    from mono_lidar_depth_tpu_torch.core.result_types import (
+        DepthResultType as R)
+    from mono_lidar_depth_tpu_torch.tracker import klt
+
+    t_phase = time.perf_counter()
+    klt.launches = klt.gate_launches = 0
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        result, launches = bench_torch.run("cuda", n_frames=BENCH_FRAMES,
+                                           reps=1)
+    tracker = klt.launches + klt.gate_launches
+    lines = printed.getvalue().strip().splitlines()
+    check(len(lines) == 1 and json.loads(lines[0]) == result,
+          f"bench_torch.run printed {len(lines)} lines, want its JSON line")
+    keys = bench_py_keys()
+    check(list(result) == keys,
+          f"bench_torch's keys {list(result)} != bench.py's {keys}")
+    # With one rep a leg's spread is 0 by definition.
+    for k, v in result.items():
+        if isinstance(v, bool) or isinstance(v, str):
+            continue
+        check(math.isfinite(v) and (v > 0 or k.startswith("spread_pct_")
+                                    and v == 0),
+              f"bench_torch: {k} = {v}")
+    # bench_torch.run raises unless each leg launched the gather once per
+    # estimate_depths / odometry_step call; here the totals of the run.
+    calls = 2 * 4 * BENCH_FRAMES + 1 + bench_torch.SERVING_STEPS_PER_REP
+    gathers = sum(launches.values())
+    check(gathers == calls and tracker == 0,
+          f"bench: {gathers} gather_neighbors and {tracker} tracker-kernel "
+          f"launches, want {calls} and 0: {launches}")
+    log(f"phase 10 bench: bench_torch.run, {BENCH_FRAMES} frames of 120000 "
+        f"points, one rep ({time.perf_counter() - t_phase:.1f} s): "
+        f"{json.dumps(result)}; gather_neighbors launches {launches} "
+        f"(one per estimate_depths / odometry_step call), tracker kernels "
+        f"{tracker} [{card}]")
+
+    # ---- fast rasterization, card against CPU, on frames 0-1 of the
+    # bench's scene, from the same RANSAC draws.
+    t0 = time.perf_counter()
+    sc = bench_torch.bench_scene(2)
+    cfg = sc.cfg.replace(fast_rasterization=True)
+    rng = np.random.default_rng(SEED)
+    draws = [_numpy_draws(rng, cfg, int(v.sum())) for v in sc.valids]
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    cam, l2c_cpu = bench_torch.camera_and_extrinsics(cpu)
+    _, l2c_dev = bench_torch.camera_and_extrinsics(dev)
+    codes, depths, cells = {cpu: [], dev: []}, {cpu: [], dev: []}, 0
+    for f in range(2):
+        cloud, valid = (torch.from_numpy(sc.clouds[f]),
+                        torch.from_numpy(sc.valids[f]))
+        sub_idx, picks = (torch.from_numpy(a) for a in draws[f])
+        gp = bench_torch.ground_plane(cfg, cloud, valid,
+                                      RansacDraws(sub_idx, picks))
+        # The raster from the CPU's transform on both devices: cuBLAS may
+        # round the 3x3 product otherwise, and a one-ulp change of z can
+        # move a point across a 1 cm quantization step.
+        want = build_frame_cloud(cloud, valid, l2c_cpu, cam,
+                                 cfg.image_height, cfg.image_width,
+                                 point_flags=gp.inlier_mask, fast=True)
+        got = rasterize_projected(
+            cloud.to(dev), want.points_cam.to(dev), want.uv.to(dev),
+            valid.to(dev), cam, cfg.image_height, cfg.image_width,
+            point_flags=gp.inlier_mask.to(dev), fast=True)
+        for name in ("grid", "winner_flat", "visible"):
+            a, b = getattr(got, name).cpu(), getattr(want, name)
+            check(torch.equal(a, b),
+                  f"frame {f}: fast raster {name} differs card/CPU on "
+                  f"{int((a != b).sum())} entries")
+        check(torch.equal(got.planes.cpu().view(torch.int32),
+                          want.planes.view(torch.int32)),
+              f"frame {f}: fast raster planes differ card/CPU in "
+              f"{int((got.planes.cpu() != want.planes).sum())} cells")
+        cells += int((want.grid >= 0).sum())
+        for d, l2c in ((cpu, l2c_cpu), (dev, l2c_dev)):
+            c, v = cloud.to(d), valid.to(d)
+            est = T.estimate_depths(
+                cfg, cam, l2c, c, v, torch.from_numpy(sc.uv_new[f]).to(d),
+                torch.ones(cfg.max_features, dtype=torch.bool, device=d),
+                bench_torch.ground_plane(cfg, c, v, RansacDraws(
+                    sub_idx.to(d), picks.to(d))))
+            codes[d].append(est.codes.cpu().numpy())
+            depths[d].append(est.depths.cpu().numpy())
+    g_codes, c_codes = np.concatenate(codes[dev]), np.concatenate(codes[cpu])
+    g_depths = np.concatenate(depths[dev])
+    c_depths = np.concatenate(depths[cpu])
+    N = cfg.max_features
+    differ = np.flatnonzero(g_codes != c_codes)
+    agree = 1.0 - differ.size / g_codes.size
+    both = (g_codes == c_codes) & (c_depths > 0)
+    rel = np.abs(g_depths - c_depths) / np.maximum(c_depths, 1e-30)
+    by_code = {}
+    for code in (R.Success, R.SuccessRoad):
+        r = rel[both & (c_codes == int(code))]
+        by_code[code.name] = (int(r.size),
+                              float((r <= 5e-3).mean()) if r.size else 1.0,
+                              float(r.max()) if r.size else 0.0)
+    log(f"phase 10 bench: fast rasterization card vs CPU, frames 0-1 of the "
+        f"bench's scene ({cells} occupied cells): grid, planes, winner_flat "
+        f"and visible equal to the bit from the same points_cam and uv; "
+        f"estimate_depths from the same RANSAC draws: codes agree "
+        f"{agree:.5f}, differing lanes (frame:lane card/CPU) "
+        f"{[f'{i // N}:{i % N} {R(int(g_codes[i])).name}/{R(int(c_codes[i])).name}' for i in differ]}; "
+        f"depths on agreeing successes (lanes, share within 5e-3 relative, "
+        f"max) {by_code} ({time.perf_counter() - t0:.1f} s) [{card}]")
+    check(agree >= 0.998, f"fast mode card/CPU codes agree {agree:.5f}")
+    check(by_code["Success"][1] >= 0.999 and by_code["SuccessRoad"][1] >= 0.98,
+          f"fast mode card/CPU depths within 5e-3 on too few lanes: "
+          f"{by_code}")
+    log(f"phase 10 bench: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"gather_neighbors": gathers}
+
+
 def main() -> int:
     import torch
 
@@ -2954,10 +3084,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; there is no CPU run",
               file=sys.stderr)
         return 1
+    import bench_torch
     from mono_lidar_depth_tpu_torch import kernels, precision
 
     name = torch.cuda.get_device_name(0)
-    card = card_line()
+    card = bench_torch.card_line(torch.device("cuda"))
     check(precision.fp32_enforced(), "TF32 is not off")
     log(f"phase 1 device: {name}, {torch.cuda.device_count()} visible, "
         f"torch {torch.__version__} CUDA {torch.version.cuda}; TF32 off for "
@@ -2993,11 +3124,12 @@ def main() -> int:
     seq_launches = phase_sequence(card, seq)
     pg_launches = phase_posegraph(card)
     dist_launches = phase_dist(card)
+    bench_launches = phase_bench(card)
 
     # Per kernel: `launches` of its main paths' runs (phase 4's
     # feature-fed path, phase 6's image-fed path, phase 7's sequence
-    # evaluators, phase 8's loop closure and phase 9's ranks, each counted
-    # from 0 just before it; the LK passes and the
+    # evaluators, phase 8's loop closure, phase 9's ranks and phase 10's
+    # bench, each counted from 0 just before it; the LK passes and the
     # gate run on the image-fed paths only; the window crop is launched by
     # neither any more, so its count is 0, and phase 3 goes on holding it
     # bit-exact and timing it through its public entry point); ms,
@@ -3034,7 +3166,8 @@ def main() -> int:
                       + img_launches["gather_neighbors"]
                       + seq_launches["gather_neighbors"]
                       + pg_launches["gather_neighbors"]
-                      + dist_launches["gather_neighbors"]),
+                      + dist_launches["gather_neighbors"]
+                      + bench_launches["gather_neighbors"]),
          "max_abs_err": gather["max_abs_err"], "ms": gather["ms"],
          "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
          "bound_by": gather["bound_by"],

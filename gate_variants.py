@@ -23,6 +23,7 @@ import sys
 
 import numpy as np
 
+import bench_torch
 import chip_smoke as cs
 
 VARIANTS = {"w2": ["-DMLD_GATE_WARPS=2"], "w4": ["-DMLD_GATE_WARPS=4"],
@@ -60,7 +61,7 @@ def main() -> int:
         SyntheticSpec, render_sequence)
     from mono_lidar_depth_tpu_torch.tracker import klt
 
-    card = cs.card_line()
+    card = bench_torch.card_line(torch.device("cuda"))
     dev = torch.device("cuda")
     seq = render_sequence(SyntheticSpec(frames=2), seed=cs.SEED)
     pyr0, pyr1 = (klt.build_pyramid(

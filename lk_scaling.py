@@ -18,6 +18,7 @@ import sys
 
 import numpy as np
 
+import bench_torch
 import chip_smoke as cs
 
 # (features, iterations) at which the kernel is timed.
@@ -37,7 +38,7 @@ def main() -> int:
     from mono_lidar_depth_tpu_torch.tracker import klt
 
     kernels.build()
-    card = cs.card_line()
+    card = bench_torch.card_line(torch.device("cuda"))
     dev = torch.device("cuda")
     seq = render_sequence(SyntheticSpec(frames=2), seed=cs.SEED)
     pyr0, pyr1 = (klt.build_pyramid(

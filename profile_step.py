@@ -60,6 +60,7 @@ import sys
 
 import numpy as np
 
+import bench_torch
 import chip_smoke as cs
 
 TARGETS = ("odometry", "track_frame", "options", "closure", "pose_graph")
@@ -230,7 +231,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 1
-    card = cs.card_line()
+    card = bench_torch.card_line(torch.device("cuda"))
     calls = WARM + TIMED + PROFILED
     dev = torch.device("cuda")
     cfg = T.DepthEstimatorConfig(do_use_depth_segmentation=False)

@@ -33,7 +33,7 @@ FORBIDDEN = ("jax", "jaxlib", "mono_lidar_depth_tpu")
 LAZY_ONLY = ("PIL", "yaml")  # may be imported inside a function only
 SCRIPTS = ["chip_smoke.py", "profile_step.py", "gate_variants.py",
            "lk_scaling.py", "scripts/run_kitti_torch.py",
-           "__graft_entry_torch__.py"]
+           "__graft_entry_torch__.py", "bench_torch.py"]
 
 
 def _port_modules():
@@ -46,7 +46,7 @@ def test_port_imports_no_jax():
         "import sys, importlib\n"
         f"for m in {_port_modules()!r} + ['mono_lidar_depth_tpu_torch', "
         "'chip_smoke', 'profile_step', 'gate_variants', 'lk_scaling', "
-        "'__graft_entry_torch__']:\n"
+        "'__graft_entry_torch__', 'bench_torch']:\n"
         "    importlib.import_module(m)\n"
         "import importlib.util as u\n"
         "spec = u.spec_from_file_location('run_kitti_torch', "

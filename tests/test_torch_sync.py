@@ -225,10 +225,15 @@ def test_update_tracks_seed_length(T_slots, M):
     ("vo/ba.py", None),
     ("collectives.py", ["all_reduce_sum"]),
     ("dist/sharded.py", None),
+    # bench_torch.py sits at the repo root, beside the package
+    ("../bench_torch.py", ["frame_at", "ground_plane", "depth_frame",
+                           "depth_leg", "combined_leg", "pose_gn_leg",
+                           "window_ba_leg"]),
 ])
 def test_no_read_back_in_the_new_per_frame_code(path, functions):
     """Region growing, the semantic plane, the chunk runners, the pose
-    graph (but `_pcg`), BA, the collective and the sharded programs read
+    graph (but `_pcg`), BA, the collective, the sharded programs and the
+    bench's leg bodies (all but its serving loop) read
     nothing back to the host: no `.item()`, `.tolist()`, `.cpu()`,
     `.numpy()`, `int(...)`, `float(...)` or `bool(...)` of a tensor, and no
     Python loop over features (`for` appears only over frames, scales and
