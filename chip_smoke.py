@@ -83,6 +83,21 @@ Phases, each printed on its own lines:
                and pose graph equal group=None to the bit; ms, all_reduce
                calls and host syncs per BA and per GN iteration, single
                against distributed.
+ 10. bench   — bench_torch.run at BENCH_FRAMES frames and one rep (bench.py's
+               keys, one gather launch per estimate_depths / odometry step);
+               then fast rasterization on frames 0-1 of its scene, card
+               against CPU: the raster bit-equal from the same points_cam
+               and uv, codes from the same RANSAC draws, and for each lane
+               whose codes differ, where its cascade parts between the two
+               devices, step by step (`_cascade_split`).
+ 11. endurance — scripts/endurance_run_torch.run at ENDURANCE_FRAMES frames of
+               the 384x128 multi-lap loop (one lap and its revisits), the
+               checkpoint at ENDURANCE_CHECKPOINT: the record's keys are
+               scripts/endurance_run.py's, the resume is bit-equal, a
+               closure is verified and used, the backend's ATE is no
+               higher than the VO's, and exactly one gather_neighbors,
+               lk_track and zncc_gate launch per VO step and per
+               verification direction.
 
 The kernels' JSON record and the card line (nvidia-smi's name and power
 limit) come just before the last line, which is {"ok": true, "device":
@@ -192,6 +207,8 @@ DIST_BA_TOL = (1e-3, 1e-4, 1e-3, 1e-2)
 DIST_BA_COST_ATOL = 1e-9
 DIST_TIMED_ITERS = 5  # BA iterations per timing
 BENCH_FRAMES = 8  # frames of phase 10's bench_torch run
+ENDURANCE_FRAMES = 256  # phase 11: one 220-frame lap and 36 revisit frames
+ENDURANCE_CHECKPOINT = 128  # phase 11 checkpoints here and resumes
 
 
 def check_no_spills(build_log: str, source: str) -> None:
@@ -2950,10 +2967,389 @@ def bench_py_keys() -> list:
     return keys
 
 
+def _host(tree):
+    """A copy of a result tree with every tensor leaf as a numpy array."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_host(x) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_host(x) for x in tree)
+    return tree
+
+
+# The stages that _CascadeTrace records: module globals of
+# core/depth_estimator.py, the road plane's scatter in core/planefit.py and
+# the RANSAC refit of the ground plane in core/ransac.py.
+_TRACED = (("depth_estimator", "rasterize_cloud"),
+           ("depth_estimator", "_gather_two_scales"),
+           ("depth_estimator", "filter_points_min_dist_blob"),
+           ("depth_estimator", "max_spanning_triangle"),
+           ("depth_estimator", "plane_from_points"),
+           ("depth_estimator", "ray_plane_intersection"),
+           ("depth_estimator", "mestimator_plane"),
+           ("planefit", "_scatter3"),
+           ("depth_estimator", "_apply_depth_gates"),
+           ("depth_estimator", "_road_pass"),
+           ("ransac", "_ls_plane"))
+
+
+class _CascadeTrace:
+    """While open, every call of the depth estimator's stages (_TRACED)
+    with its arguments and result copied to the host: `calls[name]` lists
+    (args, result) in call order.  `estimate_depths` calls each once, but
+    `plane_from_points`, `ray_plane_intersection` and
+    `_apply_depth_gates`: the primary path's call first, then the road
+    pass's."""
+
+    def __enter__(self):
+        import importlib
+
+        self.real = []
+        self.calls = {name: [] for _, name in _TRACED}
+        for mod_name, name in _TRACED:
+            module = importlib.import_module(
+                f"mono_lidar_depth_tpu_torch.core.{mod_name}")
+            real = getattr(module, name)
+            self.real.append((module, name, real))
+
+            def traced(*args, _real=real, _name=name, **kw):
+                out = _real(*args, **kw)
+                self.calls[_name].append((_host(args), _host(out)))
+                return out
+
+            setattr(module, name, traced)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, real in self.real:
+            setattr(module, name, real)
+
+
+def _ulps(a, b) -> int:
+    """The largest distance in units in the last place between two f32
+    arrays of one shape (0 when bit-equal)."""
+    def ordered(x):
+        i = np.ascontiguousarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    if np.size(a) == 0:
+        return 0
+    return int(np.abs(ordered(a) - ordered(b)).max())
+
+
+def _f32(x) -> str:
+    """The shortest decimal that reads back as the same float32."""
+    return np.format_float_positional(np.float32(x), unique=True)
+
+
+def _raw_neighbors(frame, cam, uv, scales):
+    """Each scale's raw point indices [K] of one feature (uv [2]) in a
+    host FrameCloud, from the plain gather (bit-equal to the kernel,
+    phase 3)."""
+    import torch
+    from mono_lidar_depth_tpu_torch.core import neighbors
+    from mono_lidar_depth_tpu_torch.core.projection import FrameCloud
+
+    fc = FrameCloud(*(torch.from_numpy(np.asarray(x)) for x in frame))
+    nbs = neighbors.gather_stacks_reference(
+        neighbors.frame_stacks([fc], True), [torch.from_numpy(uv[None])],
+        cam, scales, True)
+    return [nb.indices[0].numpy() for nb in nbs]
+
+
+def _bmm_lane(x, lane: int, device, gram: bool):
+    """The cascade's `torch.bmm` of a host array x [N, K, 3] on `device`,
+    in its form and at its shapes (so the card picks the same cuBLAS
+    kernel): the Gram matrix x x^T (max_spanning_triangle) or the scatter
+    x^T x (`_scatter3`); row `lane` back on the host."""
+    import torch
+
+    t = torch.from_numpy(x).to(device)
+    out = (torch.bmm(t, t.transpose(1, 2)) if gram
+           else torch.bmm(t.transpose(1, 2), t))
+    return out[lane].cpu().numpy()
+
+
+def _op_chain(steps, state: dict, devices) -> list:
+    """Where a chain of ops parts between devices: each op of `steps`
+    ((name, fn), fn(dict of tensors) -> dict of new tensors) runs on each
+    of `devices` (card, CPU) from the CPU's values of the ops before it,
+    so an op whose outputs differ computes otherwise on the two devices
+    from the same inputs.  Returns [(name, largest ulp distance of its
+    outputs)]."""
+    import torch
+
+    out = []
+    for name, fn in steps:
+        res = []
+        for d in devices:
+            r = fn({k: torch.from_numpy(np.ascontiguousarray(v)).to(d)
+                    for k, v in state.items()})
+            res.append({k: v.cpu().numpy() for k, v in r.items()})
+        out.append((name, max(_ulps(res[0][k], res[1][k]) for k in res[0])))
+        state = {**state, **res[-1]}
+    return out
+
+
+def _eigen_steps():
+    """The smallest eigenvector of a symmetric 3x3 `A` op by op, as
+    core/geometry.py's sym3x3_eigenvalues and _eigenvector_for compute it
+    (Smith 1961)."""
+    import torch
+    from mono_lidar_depth_tpu_torch.core import geometry as G
+
+    def qB(s):
+        A = s["A"]
+        q = G._div(A[..., 0, 0] + A[..., 1, 1] + A[..., 2, 2], 3.0)
+        return {"q": q, "B": A - q[..., None, None] * torch.eye(
+            3, dtype=A.dtype, device=A.device)}
+
+    def p(s):
+        sq = (s["B"] * s["B"]).flatten(-2)
+        p2 = sq[..., 0]
+        for k in range(1, 9):
+            p2 = p2 + sq[..., k]
+        return {"p": torch.sqrt(torch.clamp(G._div(p2, 6.0), min=0.0))}
+
+    return [
+        ("q, B", qB), ("p", p),
+        ("det3", lambda s: {"det": G._det3(s["B"])}),
+        ("r", lambda s: {"r": torch.clamp(
+            s["det"] / (2.0 * G._nonzero(s["p"]) ** 3), -1.0, 1.0)}),
+        ("arccos", lambda s: {"phi": G._div(torch.arccos(s["r"]), 3.0)}),
+        # a form tried for the card: arccos in float64 there, rounded,
+        # against the CPU's float32 arccos as it is
+        ("arccos in float64 on the card", lambda s: {"phi": G._div(
+            torch.arccos(s["r"].double()).float() if s["r"].is_cuda
+            else torch.arccos(s["r"]), 3.0)}),
+        ("cos", lambda s: {"c": torch.cos(s["phi"] + 2.0 * math.pi / 3.0)}),
+        ("cos in float64 on the card", lambda s: {"c": (
+            torch.cos((s["phi"] + 2.0 * math.pi / 3.0).double()).float()
+            if s["phi"].is_cuda
+            else torch.cos(s["phi"] + 2.0 * math.pi / 3.0))}),
+        ("e_lo", lambda s: {"e": s["q"] + 2.0 * s["p"] * s["c"]}),
+        ("eigenvector", lambda s: {"v": G._eigenvector_for(s["A"], s["e"])}),
+    ]
+
+
+def _ls_plane_steps():
+    """core/ransac.py's `_ls_plane` (the RANSAC refit) op by op."""
+    import torch
+    from mono_lidar_depth_tpu_torch.core import geometry as G
+
+    def centroid(s):
+        return {"c": (s["pts"] * s["w"][:, None]).sum(0) / torch.where(
+            s["wsum"] == 0, 1.0, s["wsum"])}
+
+    return [
+        ("sum of weights", lambda s: {"wsum": s["w"].sum()}),
+        ("centroid", centroid),
+        ("centered", lambda s: {"ctr": (s["pts"] - s["c"]) * torch.sqrt(
+            s["w"])[:, None]}),
+        ("scatter (matmul)", lambda s: {"S": s["ctr"].T @ s["ctr"]}),
+        ("normal", lambda s: {"n": G.smallest_eigenvector_sym3x3(s["S"])}),
+        ("offset", lambda s: {"d": -G.dot3(s["n"], s["c"])}),
+    ]
+
+
+def _chain_text(chain) -> str:
+    first = next((name for name, u in chain if u), "none")
+    return (", ".join(f"{name} {u}" for name, u in chain)
+            + f" ulp (first op to part: {first})")
+
+
+def _refit_text(g: dict, c: dict, devices) -> str:
+    """The RANSAC refit of the ground plane on the two devices: its inputs,
+    its coefficients and, op by op from the same inputs, where it parts."""
+    if not g["_ls_plane"]:
+        return ""
+    (pg, wg), cg = g["_ls_plane"][0]
+    (pc, wc), cc = c["_ls_plane"][0]
+    text = (f" (RANSAC refit in the lidar frame: inputs "
+            f"{max(_ulps(pg, pc), _ulps(wg, wc))} ulp, coefficients "
+            f"{_ulps(cg, cc)} ulp apart")
+    if devices is not None:
+        text += ("; op by op from the CPU's inputs: " + _chain_text(
+            _op_chain(_ls_plane_steps(), {"pts": pc, "w": wc}, devices)))
+    return text + ")"
+
+
+def _cascade_split(cfg, cam, uv, lane: int, g: dict, c: dict,
+                   devices=None) -> tuple[str, list]:
+    """Where one lane's depth cascade parts between two devices' traces
+    (`_CascadeTrace.calls` of one `estimate_depths` each, card `g` and CPU
+    `c`), step by step: (1) points_cam and uv of the lane's gathered
+    neighbours at both scales, (2) the histogram segment, (3) the
+    triangle, with the Gram matrix that ranks its corners (a `torch.bmm`,
+    core/planefit.py) recomputed on both `devices` (card, CPU) from the
+    same points, (4) the plane and its depth, (5) the road pass's inputs,
+    its scatter matrix (a `torch.bmm`) and plane, (6) the global and local
+    gate margins.  Returns (the first step whose values are not
+    bit-equal, one line per step)."""
+    i = lane
+    lines, first = [], None
+
+    def step(name, equal, text):
+        nonlocal first
+        if not equal and first is None:
+            first = name
+        lines.append(f"({name}) {'bit-equal' if equal else 'DIFFER'}: {text}")
+
+    # (1) the frame's transform, then the lane's neighbours
+    fg, fc = g["rasterize_cloud"][0][1], c["rasterize_cloud"][0][1]
+    v = fc.valid
+    pts_rows = (fg.points_cam[v] != fc.points_cam[v]).any(1)
+    uv_rows = (fg.uv[v] != fc.uv[v]).any(1)
+    hx = cfg.pixelarea_search_witdh * 0.5
+    hy = cfg.pixelarea_search_height * 0.5
+    scales = [(hx, hy, cfg.primary_window),
+              (hx * cfg.road_search_scale_x, hy * cfg.road_search_scale_y,
+               cfg.road_window)]
+    parts, equal = [], True
+    nbs_g, nbs_c = g["_gather_two_scales"][0][1], c["_gather_two_scales"][0][1]
+    idx_g = _raw_neighbors(fg, cam, uv, scales)
+    idx_c = _raw_neighbors(fc, cam, uv, scales)
+    for k, (ng, nc) in enumerate(zip(nbs_g, nbs_c)):
+        same_idx = np.array_equal(idx_g[k], idx_c[k])
+        ids = np.intersect1d(idx_g[k][idx_g[k] >= 0], idx_c[k][idx_c[k] >= 0])
+        p_ulp = _ulps(fg.points_cam[ids], fc.points_cam[ids])
+        u_ulp = _ulps(fg.uv[ids], fc.uv[ids])
+        m_eq = np.array_equal(ng.mask[i], nc.mask[i])
+        both = ng.mask[i] & nc.mask[i]
+        d_ulp = _ulps(ng.points_cam[i][both], nc.points_cam[i][both])
+        equal &= same_idx and m_eq and p_ulp == 0 and u_ulp == 0 \
+            and d_ulp == 0
+        parts.append(
+            f"scale {k}: raw neighbour indices "
+            f"{'equal' if same_idx else 'differ'} ({len(ids)} in common: "
+            f"points_cam {p_ulp} ulp, uv {u_ulp} ulp apart); decoded window "
+            f"mask {'equal' if m_eq else 'differs'} ({int(ng.count[i])}/"
+            f"{int(nc.count[i])}), decoded points_cam {d_ulp} ulp apart on "
+            f"{int(both.sum())} common cells")
+    step("1 neighbours", equal,
+         f"frame transform: points_cam of {int(pts_rows.sum())} and uv of "
+         f"{int(uv_rows.sum())} of {int(v.sum())} valid points differ (max "
+         f"{_ulps(fg.points_cam[v], fc.points_cam[v])} / "
+         f"{_ulps(fg.uv[v], fc.uv[v])} ulp); " + "; ".join(parts))
+
+    # (2) the histogram segment
+    hg, hc = (t["filter_points_min_dist_blob"][0][1] for t in (g, c))
+    step("2 segment", np.array_equal(hg.seg_mask[i], hc.seg_mask[i])
+         and hg.lower[i] == hc.lower[i],
+         f"points {int(hg.seg_mask[i].sum())}/{int(hc.seg_mask[i].sum())}, "
+         f"lower bin border {_f32(hg.lower[i])}/{_f32(hc.lower[i])} m, found "
+         f"{bool(hg.found[i])}/{bool(hc.found[i])}")
+
+    # (3) the triangle
+    if g["max_spanning_triangle"]:
+        tg, tc = (t["max_spanning_triangle"][0][1] for t in (g, c))
+        text = (f"corners {np.abs(tg.corners[i] - tc.corners[i]).max():.1e} "
+                f"m apart ({_ulps(tg.corners[i], tc.corners[i])} ulp), span "
+                f"gaps {_span_gap(tg.corners[i], tc.corners[i])}, ok "
+                f"{bool(tg.ok[i])}/{bool(tc.ok[i])}")
+        pts = c["max_spanning_triangle"][0][0][0]
+        if devices is not None:
+            grams = [_bmm_lane(pts, i, d, True) for d in devices]
+            text += (f"; Gram matrix of the CPU's points on card/CPU "
+                     f"{_ulps(*grams)} ulp apart on "
+                     f"{int((grams[0] != grams[1]).sum())} of "
+                     f"{grams[0].size} entries")
+        step("3 triangle", np.array_equal(tg.corners[i], tc.corners[i]), text)
+
+    def plane_at(t, n):
+        normal, offset = t["plane_from_points"][n][1]
+        return np.r_[normal[i], offset[i]]
+
+    def depth_at(t, n):
+        return t["ray_plane_intersection"][n][1][1][i]
+
+    # (4) the primary plane and its depth
+    pg, pc = plane_at(g, 0), plane_at(c, 0)
+    ray = g["ray_plane_intersection"][0][0][3][i]
+    angle, offset = _plane_angle_offset(pg, pc)
+    step("4 plane", np.array_equal(pg, pc) and depth_at(g, 0) == depth_at(c, 0),
+         f"normals {angle:.2e} deg apart, offsets {offset:.2e} m "
+         f"({_ulps(pg, pc)} ulp); n.ray {float(np.dot(pg[:3], ray)):+.3e}/"
+         f"{float(np.dot(pc[:3], ray)):+.3e}; depth "
+         f"{_f32(depth_at(g, 0))}/{_f32(depth_at(c, 0))} m")
+
+    # (5) the road pass
+    rg, rc = g["_road_pass"][0], c["_road_pass"][0]
+    coeffs = [np.asarray(r[0][4]) for r in (rg, rc)]
+    coeffs = [x[i] if x.ndim == 2 else x for x in coeffs]
+    ins = [(int(r[0][6][i]), bool(r[0][9][i]), bool(np.asarray(r[0][5]).ravel()[
+        i if np.size(r[0][5]) > 1 else 0])) for r in (rg, rc)]
+    text = (f"ground plane (camera) {_ulps(coeffs[0], coeffs[1])} ulp apart"
+            f"{_refit_text(g, c, devices)}; "
+            f"primary code {ins[0][0]}/{ins[1][0]}, primary success "
+            f"{ins[0][1]}/{ins[1][1]}, plane ok {ins[0][2]}/{ins[1][2]}")
+    equal = np.array_equal(coeffs[0], coeffs[1]) and ins[0] == ins[1]
+    if g["_scatter3"]:
+        (ag,), sg = g["_scatter3"][0]
+        (ac,), sc_ = c["_scatter3"][0]
+        equal &= np.array_equal(ag[i], ac[i]) and np.array_equal(sg[i], sc_[i])
+        text += (f"; weighted centered points {_ulps(ag[i], ac[i])} ulp, "
+                 f"scatter (torch.bmm) {_ulps(sg[i], sc_[i])} ulp apart, "
+                 f"the CPU's as float32 bits "
+                 f"{sc_[i].view(np.uint32).ravel().tolist()}")
+        if devices is not None:
+            sc2 = [_bmm_lane(ac, i, d, False) for d in devices]
+            text += (f", the scatter of the CPU's points on card/CPU "
+                     f"{_ulps(*sc2)} ulp apart")
+            text += (f"; the road normal op by op from the CPU's scatter: "
+                     f"{_chain_text(_op_chain(_eigen_steps(), {'A': sc_[i:i + 1]}, devices))}")
+    if g["mestimator_plane"]:
+        mg, mc = (t["mestimator_plane"][0][1] for t in (g, c))
+        road = [np.r_[m.normal[i], -np.dot(m.normal[i], m.anchor[i])]
+                for m in (mg, mc)]
+        r_angle, r_offset = _plane_angle_offset(*road)
+        equal &= np.array_equal(road[0], road[1])
+        text += (f"; road plane normals {r_angle:.2e} deg apart, offsets "
+                 f"{r_offset:.2e} m ({_ulps(road[0], road[1])} ulp)")
+    if len(g["ray_plane_intersection"]) > 1:
+        equal &= depth_at(g, 1) == depth_at(c, 1)
+        text += (f"; road depth {_f32(depth_at(g, 1))}/"
+                 f"{_f32(depth_at(c, 1))} m")
+    text += (f"; road pass out {int(rg[1][0][i])}/{int(rc[1][0][i])} at "
+             f"{_f32(rg[1][1][i])}/{_f32(rc[1][1][i])} m")
+    step("5 road", equal, text)
+
+    # (6) the gates: global margins (depth - min, max - depth) and the
+    # local interval's (depth - lo, hi - depth) of each gate call
+    parts, equal = [], True
+    for n, (ag, ac) in enumerate(zip(g["_apply_depth_gates"],
+                                     c["_apply_depth_gates"])):
+        row = []
+        for args, out in (ag, ac):
+            depth, nz, seg = args[1][i], args[2][i], args[3][i]
+            lo_z = nz[seg].min() if seg.any() else np.inf
+            hi_z = nz[seg].max() if seg.any() else -np.inf
+            with np.errstate(invalid="ignore"):  # empty segment: inf - inf
+                tol = ((hi_z - lo_z) * cfg.treshold_depth_local_value
+                       if cfg.treshold_depth_local_valuetype == 1
+                       else cfg.treshold_depth_local_value)
+                row.append((float(depth - cfg.treshold_depth_min),
+                            float(cfg.treshold_depth_max - depth),
+                            float(depth - (lo_z - tol)),
+                            float(hi_z + tol - depth), int(out[1][i])))
+        equal &= np.array_equal(row[0], row[1], equal_nan=True)
+        parts.append(
+            f"{('primary', 'road')[n]}: global {row[0][0]:+.3e}, "
+            f"{row[0][1]:+.3e} / {row[1][0]:+.3e}, {row[1][1]:+.3e}; local "
+            f"{row[0][2]:+.3e}, {row[0][3]:+.3e} / {row[1][2]:+.3e}, "
+            f"{row[1][3]:+.3e} m; gate code {row[0][4]}/{row[1][4]}")
+    step("6 gates", equal, "; ".join(parts))
+    return first or "none", lines
+
+
 def phase_bench(card: str) -> dict:
     """bench_torch.run on the card at the full width, BENCH_FRAMES frames
     and one rep; then fast rasterization card against CPU on frames 0-1
-    of its scene."""
+    of its scene, and where the two devices' codes differ, where each
+    such lane's cascade parts (`_cascade_split`)."""
     import contextlib
     import io
 
@@ -3011,6 +3407,7 @@ def phase_bench(card: str) -> dict:
     cam, l2c_cpu = bench_torch.camera_and_extrinsics(cpu)
     _, l2c_dev = bench_torch.camera_and_extrinsics(dev)
     codes, depths, cells = {cpu: [], dev: []}, {cpu: [], dev: []}, 0
+    traces = {cpu: [], dev: []}
     for f in range(2):
         cloud, valid = (torch.from_numpy(sc.clouds[f]),
                         torch.from_numpy(sc.valids[f]))
@@ -3039,11 +3436,15 @@ def phase_bench(card: str) -> dict:
         cells += int((want.grid >= 0).sum())
         for d, l2c in ((cpu, l2c_cpu), (dev, l2c_dev)):
             c, v = cloud.to(d), valid.to(d)
-            est = T.estimate_depths(
-                cfg, cam, l2c, c, v, torch.from_numpy(sc.uv_new[f]).to(d),
-                torch.ones(cfg.max_features, dtype=torch.bool, device=d),
-                bench_torch.ground_plane(cfg, c, v, RansacDraws(
-                    sub_idx.to(d), picks.to(d))))
+            with _CascadeTrace() as trace:
+                gp_d = bench_torch.ground_plane(cfg, c, v, RansacDraws(
+                    sub_idx.to(d), picks.to(d)))
+                est = T.estimate_depths(
+                    cfg, cam, l2c, c, v,
+                    torch.from_numpy(sc.uv_new[f]).to(d),
+                    torch.ones(cfg.max_features, dtype=torch.bool, device=d),
+                    gp_d)
+            traces[d].append(trace.calls)
             codes[d].append(est.codes.cpu().numpy())
             depths[d].append(est.depths.cpu().numpy())
     g_codes, c_codes = np.concatenate(codes[dev]), np.concatenate(codes[cpu])
@@ -3068,12 +3469,195 @@ def phase_bench(card: str) -> dict:
         f"{[f'{i // N}:{i % N} {R(int(g_codes[i])).name}/{R(int(c_codes[i])).name}' for i in differ]}; "
         f"depths on agreeing successes (lanes, share within 5e-3 relative, "
         f"max) {by_code} ({time.perf_counter() - t0:.1f} s) [{card}]")
+    # Where each differing lane's cascade parts between the two devices.
+    split = {}
+    for k in differ:
+        f, lane = divmod(int(k), N)
+        first, lines = _cascade_split(cfg, cam, sc.uv_new[f][lane], lane,
+                                      traces[dev][f], traces[cpu][f],
+                                      (dev, cpu))
+        split[f"{f}:{lane}"] = first
+        log(f"phase 10 bench: lane {f}:{lane} "
+            f"{R(int(g_codes[k])).name}/{R(int(c_codes[k])).name} "
+            f"(card/CPU), step by step:")
+        for ln in lines:
+            log(f"    {ln}")
+    log(f"phase 10 bench: the first step at which each differing lane's "
+        f"cascade parts, card vs CPU: {split or 'no lane differs'}")
     check(agree >= 0.998, f"fast mode card/CPU codes agree {agree:.5f}")
     check(by_code["Success"][1] >= 0.999 and by_code["SuccessRoad"][1] >= 0.98,
           f"fast mode card/CPU depths within 5e-3 on too few lanes: "
           f"{by_code}")
     log(f"phase 10 bench: {time.perf_counter() - t_phase:.1f} s [{card}]")
     return {"gather_neighbors": gathers}
+
+
+def endurance_py_keys() -> tuple[list, dict]:
+    """The keys of scripts/endurance_run.py's record, read from its
+    source: (the top-level keys in order, {top-level key: [each key list
+    the reference may write there]}).  Follows the dict literals that
+    `main` assigns to `rec[...]` or to a name, `run_backend`'s `out`
+    dict with its f-string key taking the call's label, and the keys
+    later set on those dicts."""
+    import ast
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "endurance_run.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    fns = {n.name: n for n in ast.walk(tree)
+           if isinstance(n, ast.FunctionDef)}
+    out = next(n.value for n in ast.walk(fns["run_backend"])
+               if isinstance(n, ast.Assign) and isinstance(n.value, ast.Dict)
+               and [ast.unparse(t) for t in n.targets] == ["out"])
+
+    def key(node, label=None):
+        if isinstance(node, ast.Constant):
+            return node.value
+        return "".join(v.value if isinstance(v, ast.Constant) else label
+                       for v in node.values)  # f"ate_{label}_m"
+
+    def keys_of(value):
+        if isinstance(value, ast.Dict):
+            return [key(k) for k in value.keys]
+        if (isinstance(value, ast.Call)
+                and ast.unparse(value.func) == "run_backend"):
+            label = value.args[1].value
+            return [key(k, label) for k in out.keys]
+        if isinstance(value, ast.Name):
+            return names.get(value.id)
+        return None
+
+    backend_nodes = set(map(id, ast.walk(fns["run_backend"])))
+    assigns = sorted((n for n in ast.walk(fns["main"])
+                      if isinstance(n, ast.Assign)
+                      and id(n) not in backend_nodes),
+                     key=lambda n: n.lineno)
+    names, top, nested = {}, [], {}
+    for node in assigns:
+        for target in node.targets:
+            elts = (target.elts if isinstance(target, ast.Tuple)
+                    else [target])
+            value = keys_of(node.value)
+            for n, t in enumerate(elts):
+                v = value if n == 0 else None
+                if isinstance(t, ast.Name):
+                    if v is not None:
+                        names[t.id] = list(v)
+                        if t.id == "rec":
+                            top = list(v)
+                    continue
+                if not (isinstance(t, ast.Subscript)
+                        and isinstance(t.slice, ast.Constant)):
+                    continue
+                k, base = t.slice.value, t.value
+                if isinstance(base, ast.Name) and base.id == "rec":
+                    if k not in top:
+                        top.append(k)
+                    if v is not None:
+                        nested.setdefault(k, []).append(list(v))
+                    continue
+                if isinstance(base, ast.Name) and base.id in names:
+                    dict_keys = names[base.id]
+                elif (isinstance(base, ast.Subscript)
+                      and ast.unparse(base.value) == "rec"):
+                    dict_keys = nested[base.slice.value][-1]
+                else:
+                    continue
+                if k not in dict_keys:  # a dict keeps a key's first place
+                    dict_keys.append(k)
+    return top, nested
+
+
+def load_endurance():
+    """scripts/endurance_run_torch.py as a module."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "endurance_run_torch.py")
+    spec = importlib.util.spec_from_file_location("endurance_run_torch",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def check_endurance_keys(rec: dict) -> None:
+    """The record's keys are the reference's (read from its source), plus
+    `port`; each stage's keys are one of the reference's key lists."""
+    top, nested = endurance_py_keys()
+    check([k for k in rec if k != "port"] == top and "port" in rec,
+          f"endurance record keys {list(rec)}, want {top} + ['port']")
+    for k, alternatives in nested.items():
+        check(list(rec[k]) in alternatives,
+              f"endurance record {k}: keys {list(rec[k])}, want one of "
+              f"{alternatives}")
+
+
+def phase_endurance(card: str) -> dict:
+    """scripts/endurance_run_torch.run on the card at ENDURANCE_FRAMES
+    frames (one lap and its revisits) with the checkpoint at
+    ENDURANCE_CHECKPOINT, the kernel counts reset just before."""
+    import contextlib
+    import io
+
+    from mono_lidar_depth_tpu_torch.core import neighbors, windows
+    from mono_lidar_depth_tpu_torch.tracker import klt
+
+    e = load_endurance()
+    t0 = time.perf_counter()
+    neighbors.launches = windows.launches = 0
+    klt.launches = klt.gate_launches = 0
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rec = e.run(ENDURANCE_FRAMES, ENDURANCE_CHECKPOINT, "cuda")
+    wall = time.perf_counter() - t0
+    total = e.kernel_launches()
+    lines = [json.loads(ln) for ln in printed.getvalue().splitlines()]
+    stages = ["vo", "checkpoint_resume", "pose_graph",
+              "pose_graph_high_drift"]
+    check([next(iter(ln)) for ln in lines] == stages,
+          f"endurance_run_torch printed {lines}, want one line per stage")
+    check_endurance_keys(rec)
+    port = rec["port"]
+    resume, pg, hd = (rec["checkpoint_resume"], rec["pose_graph"],
+                      rec["pose_graph_high_drift"])
+    log(f"phase 11 endurance: scripts/endurance_run_torch.run, "
+        f"{ENDURANCE_FRAMES} frames at 384x128 (render {rec['gen_wall_s']} s)"
+        f", checkpoint at {ENDURANCE_CHECKPOINT}, {wall:.1f} s: VO "
+        f"{json.dumps(rec['vo'])}; resume {json.dumps(resume)}; backend "
+        f"{json.dumps(pg)}; drifted {json.dumps(hd)}; verification calls "
+        f"{port['verify_calls']} in {port['verify_s']} s; solves (s, GN "
+        f"iterations) {port['solves']} [{card}]")
+    check(resume["max_pose_deviation"] == 0.0,
+          f"endurance: the resumed trajectory is not bit-equal "
+          f"({resume['max_pose_deviation']})")
+    check(pg["closures_verified"] >= 1 and pg["closures_used"] >= 1,
+          f"endurance: {pg['closures_verified']} closures verified, "
+          f"{pg['closures_used']} used in the nominal leg")
+    check(math.isfinite(pg["ate_posegraph_m"])
+          and pg["ate_posegraph_m"] <= pg["ate_vo_m"],
+          f"endurance: backend ATE {pg['ate_posegraph_m']} m above the VO's "
+          f"{pg['ate_vo_m']} m")
+    # One gather, lk_track and zncc_gate per VO step (the first frame
+    # only detects), and per verification direction: two per call.
+    steps = ENDURANCE_FRAMES - 1
+    for stage, calls in (("vo", steps), ("checkpoint_resume", steps),
+                         ("pose_graph", 2 * port["verify_calls"][
+                             "pose_graph"]),
+                         ("pose_graph_high_drift", 2 * port["verify_calls"][
+                             "pose_graph_high_drift"])):
+        want = {"gather_neighbors": calls, "lk_track": calls,
+                "zncc_gate": calls, "slice_windows": 0}
+        check(port["launches"][stage] == want,
+              f"endurance {stage}: launches {port['launches'][stage]}, "
+              f"want {want}")
+    log(f"phase 11 endurance: launches per stage {port['launches']} (one "
+        f"gather_neighbors, lk_track and zncc_gate per VO step and per "
+        f"verification direction), total {total} [{card}]")
+    return total
 
 
 def main() -> int:
@@ -3125,11 +3709,13 @@ def main() -> int:
     pg_launches = phase_posegraph(card)
     dist_launches = phase_dist(card)
     bench_launches = phase_bench(card)
+    end_launches = phase_endurance(card)
 
     # Per kernel: `launches` of its main paths' runs (phase 4's
     # feature-fed path, phase 6's image-fed path, phase 7's sequence
-    # evaluators, phase 8's loop closure, phase 9's ranks and phase 10's
-    # bench, each counted from 0 just before it; the LK passes and the
+    # evaluators, phase 8's loop closure, phase 9's ranks, phase 10's
+    # bench and phase 11's endurance run, each counted from 0 just before
+    # it; the LK passes and the
     # gate run on the image-fed paths only; the window crop is launched by
     # neither any more, so its count is 0, and phase 3 goes on holding it
     # bit-exact and timing it through its public entry point); ms,
@@ -3149,14 +3735,15 @@ def main() -> int:
          "launches": (launches["slice_windows"]
                       + img_launches["slice_windows"]
                       + seq_launches["slice_windows"]
-                      + pg_launches["slice_windows"]),
+                      + pg_launches["slice_windows"]
+                      + end_launches["slice_windows"]),
          "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
          "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
          "bound_by": "bytes", "library_ms": kern["library_ms"]},
         {"name": "lk_track", "route": "cuda", "source": LK_SOURCE,
          "replaces": REPLACES,
          "launches": (img_launches["lk_track"] + seq_launches["lk_track"]
-                      + pg_launches["lk_track"]),
+                      + pg_launches["lk_track"] + end_launches["lk_track"]),
          "max_abs_err": lk["max_abs_err"], "ms": lk["ms"],
          "plain_ms": lk["plain_ms"], "bound_ms": lk["bound_ms"],
          "bound_by": lk["bound_by"], "library_ms": lk["library_ms"]},
@@ -3167,7 +3754,8 @@ def main() -> int:
                       + seq_launches["gather_neighbors"]
                       + pg_launches["gather_neighbors"]
                       + dist_launches["gather_neighbors"]
-                      + bench_launches["gather_neighbors"]),
+                      + bench_launches["gather_neighbors"]
+                      + end_launches["gather_neighbors"]),
          "max_abs_err": gather["max_abs_err"], "ms": gather["ms"],
          "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
          "bound_by": gather["bound_by"],
@@ -3176,7 +3764,7 @@ def main() -> int:
         {"name": "zncc_gate", "route": "cuda", "source": GATE_SOURCE,
          "replaces": REPLACES,
          "launches": (img_launches["zncc_gate"] + seq_launches["zncc_gate"]
-                      + pg_launches["zncc_gate"]),
+                      + pg_launches["zncc_gate"] + end_launches["zncc_gate"]),
          "max_abs_err": gate["max_abs_err"], "ms": gate["ms"],
          "plain_ms": gate["plain_ms"], "bound_ms": gate["bound_ms"],
          "bound_by": gate["bound_by"], "library_ms": gate["library_ms"]}]}))

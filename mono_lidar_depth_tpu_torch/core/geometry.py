@@ -43,6 +43,14 @@ def _nonzero(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x == 0, torch.ones_like(x), x)
 
 
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c rounded as a true division on every device.  On a card ATen
+    computes `x / c` for a Python number c as x * (1 / c), which can be
+    one ulp off the quotient; a 0-dim divisor on x's device is divided
+    by, as the CPU divides by either."""
+    return x / x.new_full((), c)
+
+
 class PinholeCamera(NamedTuple):
     """Single-focal-length pinhole camera, fx == fy."""
 
@@ -149,18 +157,18 @@ def _det3(B: torch.Tensor) -> torch.Tensor:
 
 def sym3x3_eigenvalues(A: torch.Tensor) -> torch.Tensor:
     """Ascending eigenvalues of symmetric [..., 3, 3] (Smith 1961)."""
-    q = (A[..., 0, 0] + A[..., 1, 1] + A[..., 2, 2]) / 3.0
+    q = _div(A[..., 0, 0] + A[..., 1, 1] + A[..., 2, 2], 3.0)
     eye = torch.eye(3, dtype=A.dtype, device=A.device)
     B = A - q[..., None, None] * eye
     sq = (B * B).flatten(-2)
     p2 = sq[..., 0]
     for k in range(1, 9):  # row-major order, as XLA reduces it
         p2 = p2 + sq[..., k]
-    p2 = p2 / 6.0
+    p2 = _div(p2, 6.0)
     p = torch.sqrt(torch.clamp(p2, min=0.0))
     safe_p = _nonzero(p)
     r = torch.clamp(_det3(B) / (2.0 * safe_p ** 3), -1.0, 1.0)
-    phi = torch.arccos(r) / 3.0
+    phi = _div(torch.arccos(r), 3.0)
     e_hi = q + 2.0 * p * torch.cos(phi)
     e_lo = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
     e_mid = 3.0 * q - e_hi - e_lo

@@ -314,3 +314,45 @@ def test_main_refuses_without_a_card(monkeypatch, capsys):
     assert "--device cpu" in capsys.readouterr().err
     with pytest.raises(RuntimeError, match="no CUDA device"):
         B.run("cuda", n_frames=6)
+
+
+@pytest.mark.parametrize("shift", [0.0, 2e-3])
+def test_phase_10_lane_report(shift):
+    """chip_smoke.py's `_cascade_split` (phase 10's report of where a
+    lane's cascade parts between the card and the CPU) on two CPU runs of
+    frame 0 of bench.py's scene in fast mode, the second from a
+    lidar-to-camera translation moved by `shift`: with no shift every
+    step of every lane is bit-equal and every op of the RANSAC refit and
+    the eigensolver reads 0 ulp; with one, the codes part on some lanes,
+    and on each the neighbours (step 1) differ first."""
+    sc = B.bench_scene(1)
+    cfg = sc.cfg.replace(fast_rasterization=True)
+    draws = chip_smoke._numpy_draws(np.random.default_rng(0), cfg,
+                                    int(sc.valids[0].sum()))
+    cpu = torch.device("cpu")
+    cam, l2c = B.camera_and_extrinsics(cpu)
+    cloud, valid = (torch.from_numpy(sc.clouds[0]),
+                    torch.from_numpy(sc.valids[0]))
+    runs = []
+    for t in (l2c, l2c._replace(translation=l2c.translation + shift)):
+        with chip_smoke._CascadeTrace() as trace:
+            gp = B.ground_plane(cfg, cloud, valid, RansacDraws(
+                *(torch.from_numpy(a) for a in draws)))
+            est = T.estimate_depths(
+                cfg, cam, t, cloud, valid, torch.from_numpy(sc.uv_new[0]),
+                torch.ones(cfg.max_features, dtype=torch.bool), gp)
+        runs.append((trace.calls, est.codes.numpy()))
+    (c_calls, c_codes), (g_calls, g_codes) = runs
+    differ = np.flatnonzero(g_codes != c_codes)
+    lanes = list(differ[:3]) if shift else [0, 5, 700]
+    assert (len(differ) > 0) == (shift > 0)
+    for lane in lanes:
+        first, lines = chip_smoke._cascade_split(
+            cfg, cam, sc.uv_new[0][lane], int(lane), g_calls, c_calls,
+            (cpu, cpu))
+        assert len(lines) == 6, lines
+        if shift:
+            assert first == "1 neighbours" and "DIFFER" in lines[0]
+        else:
+            assert first == "none" and all("bit-equal" in ln for ln in lines)
+            assert "first op to part: none" in lines[4]

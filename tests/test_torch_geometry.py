@@ -173,3 +173,49 @@ def test_xz_flatness():
                                             jnp.asarray(mask), thr))
         t = tp.check_xz_flatness(_t(pts), _t(mask), thr).numpy()
         assert np.array_equal(t, j)
+
+
+def _phase10_scatter(lane: str) -> torch.Tensor:
+    import json
+    from pathlib import Path
+
+    path = Path(__file__).parent / "fixtures" / "phase10_road_scatter.json"
+    bits = json.loads(path.read_text())["lanes"][lane]
+    return torch.from_numpy(np.array(bits, np.uint32).view(np.float32)
+                            .reshape(1, 3, 3))
+
+
+def _angle_deg(a, b) -> float:
+    return float(np.degrees(np.arccos(min(1.0, abs(float((a * b).sum()))))))
+
+
+@pytest.mark.parametrize("lane,turn_deg", [("1:1497", 80.0), ("1:1208", 0.2)])
+def test_eigensolver_divides_truly(monkeypatch, lane, turn_deg):
+    """The closed-form eigensolver divides by 3 and 6 with `_div`: a true
+    division on every device.  A card computes `x / 3.0` as x * (1/3),
+    and on the road scatter of chip_smoke.py phase 10's lane 1:1497 (bit-
+    equal on the card and the CPU) that product turned the road normal
+    81.8 deg away from the CPU's, and the lane's code with it (lane
+    1:1208's turned 0.75 deg, most of it from its ground plane).  Here the
+    card's former form is emulated with the float32 reciprocal: it turns
+    the normal by more than `turn_deg`, while `_div` gives the CPU's
+    bits, as `/` does."""
+    A = _phase10_scatter(lane)
+    x = A[..., 0, 0] + A[..., 1, 1] + A[..., 2, 2]
+    assert torch.equal(tg._div(x, 3.0).view(torch.int32),
+                       (x / 3.0).view(torch.int32))
+    want = tg.smallest_eigenvector_sym3x3(A)
+    monkeypatch.setattr(tg, "_div", lambda v, c: v * v.new_full((), 1.0 / c))
+    assert not torch.equal(tg._div(x, 3.0), x / 3.0)
+    card_before = tg.smallest_eigenvector_sym3x3(A)
+    assert _angle_deg(want, card_before) > turn_deg
+
+
+def test_div_is_the_cpus_division():
+    """On the CPU `_div` gives the bits of `/` by a Python number."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.normal(size=100_000) * 10.0 ** rng.uniform(
+        -8, 8, 100_000)).astype(np.float32))
+    for c in (3.0, 6.0, 7.0, 0.1):
+        assert torch.equal(tg._div(x, c).view(torch.int32),
+                           (x / c).view(torch.int32)), c

@@ -33,7 +33,8 @@ FORBIDDEN = ("jax", "jaxlib", "mono_lidar_depth_tpu")
 LAZY_ONLY = ("PIL", "yaml")  # may be imported inside a function only
 SCRIPTS = ["chip_smoke.py", "profile_step.py", "gate_variants.py",
            "lk_scaling.py", "scripts/run_kitti_torch.py",
-           "__graft_entry_torch__.py", "bench_torch.py"]
+           "__graft_entry_torch__.py", "bench_torch.py",
+           "scripts/endurance_run_torch.py"]
 
 
 def _port_modules():
@@ -49,9 +50,9 @@ def test_port_imports_no_jax():
         "'__graft_entry_torch__', 'bench_torch']:\n"
         "    importlib.import_module(m)\n"
         "import importlib.util as u\n"
-        "spec = u.spec_from_file_location('run_kitti_torch', "
-        "'scripts/run_kitti_torch.py')\n"
-        "spec.loader.exec_module(u.module_from_spec(spec))\n"
+        "for name in ('run_kitti_torch', 'endurance_run_torch'):\n"
+        "    spec = u.spec_from_file_location(name, f'scripts/{name}.py')\n"
+        "    spec.loader.exec_module(u.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + LAZY_ONLY!r})\n"
         "assert not bad, bad\n"

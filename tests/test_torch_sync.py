@@ -229,12 +229,18 @@ def test_update_tracks_seed_length(T_slots, M):
     ("../bench_torch.py", ["frame_at", "ground_plane", "depth_frame",
                            "depth_leg", "combined_leg", "pose_gn_leg",
                            "window_ba_leg"]),
+    # the endurance twin: its per-pair memo (ClosureMemo.__call__), the
+    # drift injection over every frame and the launch counters it reads
+    # around each stage; its frames run inside eval_vo_sequence
+    ("../scripts/endurance_run_torch.py", ["__call__", "inject_drift",
+                                           "kernel_launches",
+                                           "launches_since"]),
 ])
 def test_no_read_back_in_the_new_per_frame_code(path, functions):
     """Region growing, the semantic plane, the chunk runners, the pose
-    graph (but `_pcg`), BA, the collective, the sharded programs and the
-    bench's leg bodies (all but its serving loop) read
-    nothing back to the host: no `.item()`, `.tolist()`, `.cpu()`,
+    graph (but `_pcg`), BA, the collective, the sharded programs, the
+    bench's leg bodies (all but its serving loop) and the endurance twin's
+    per-pair and per-frame functions read nothing back to the host: no `.item()`, `.tolist()`, `.cpu()`,
     `.numpy()`, `int(...)`, `float(...)` or `bool(...)` of a tensor, and no
     Python loop over features (`for` appears only over frames, scales and
     labels)."""
