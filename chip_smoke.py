@@ -89,7 +89,9 @@ Phases, each printed on its own lines:
                against CPU: the raster bit-equal from the same points_cam
                and uv, codes from the same RANSAC draws, and for each lane
                whose codes differ, where its cascade parts between the two
-               devices, step by step (`_cascade_split`).
+               devices, step by step (`_cascade_split`), with the port's
+               triangle, RANSAC refit and road plane fit replayed op by op
+               on both from the CPU's inputs (`_op_chain`).
  11. endurance — scripts/endurance_run_torch.run at ENDURANCE_FRAMES frames of
                the 384x128 multi-lap loop (one lap and its revisits), the
                checkpoint at ENDURANCE_CHECKPOINT: the record's keys are
@@ -188,9 +190,11 @@ CLOSURE_TOL = (2e-3, 2e-2, 2e-2)
 BACKEND_TOL = (1e-3, 5e-3)
 # The KITTI-00-scale graph (__graft_entry__.py) and its solve; card vs
 # CPU positions (share of the extent) and rotations (rad), the bars of
-# tests/test_torch_pose_graph.py against JAX.
+# tests/test_torch_pose_graph.py against JAX.  Two GN iterations (four
+# until phase 11 was added) keep the whole script near its earlier length:
+# one iteration's PCG exits early, the other runs its 250.
 KITTI00_POSES = 4541
-PG_GN_ITERS, PG_CG_ITERS = 4, 250
+PG_GN_ITERS, PG_CG_ITERS = 2, 250
 KITTI00_TOL = (1e-6, 2e-4)
 # Phase 9: the three sharded programs of __graft_entry_torch__'s dryrun at
 # its KITTI shapes, on DIST_RANKS gloo ranks sharing the card (one frame
@@ -2977,6 +2981,8 @@ def _host(tree):
         return type(tree)(*(_host(x) for x in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(_host(x) for x in tree)
+    if isinstance(tree, dict):
+        return {k: _host(x) for k, x in tree.items()}
     return tree
 
 
@@ -2999,8 +3005,8 @@ _TRACED = (("depth_estimator", "rasterize_cloud"),
 class _CascadeTrace:
     """While open, every call of the depth estimator's stages (_TRACED)
     with its arguments and result copied to the host: `calls[name]` lists
-    (args, result) in call order.  `estimate_depths` calls each once, but
-    `plane_from_points`, `ray_plane_intersection` and
+    (args, result, keyword arguments) in call order.  `estimate_depths`
+    calls each once, but `plane_from_points`, `ray_plane_intersection` and
     `_apply_depth_gates`: the primary path's call first, then the road
     pass's."""
 
@@ -3017,7 +3023,8 @@ class _CascadeTrace:
 
             def traced(*args, _real=real, _name=name, **kw):
                 out = _real(*args, **kw)
-                self.calls[_name].append((_host(args), _host(out)))
+                self.calls[_name].append((_host(args), _host(out),
+                                          _host(kw)))
                 return out
 
             setattr(module, name, traced)
@@ -3060,105 +3067,87 @@ def _raw_neighbors(frame, cam, uv, scales):
     return [nb.indices[0].numpy() for nb in nbs]
 
 
-def _bmm_lane(x, lane: int, device, gram: bool):
-    """The cascade's `torch.bmm` of a host array x [N, K, 3] on `device`,
-    in its form and at its shapes (so the card picks the same cuBLAS
-    kernel): the Gram matrix x x^T (max_spanning_triangle) or the scatter
-    x^T x (`_scatter3`); row `lane` back on the host."""
+def _port_line() -> str:
+    """file:line of the innermost frame in the port's package."""
+    f = sys._getframe(1)
+    while f is not None:
+        path = f.f_code.co_filename.replace("\\", "/")
+        if "/mono_lidar_depth_tpu_torch/" in path:
+            return (f"{path.split('/mono_lidar_depth_tpu_torch/')[1]}:"
+                    f"{f.f_lineno}")
+        f = f.f_back
+    return "?"
+
+
+def _op_chain(fn, args, kwargs, devices, lane=None) -> list:
+    """Where a port function parts between devices, op by op: `fn(*args,
+    **kwargs)` (host arrays) runs once on the CPU under a torch function
+    mode that records every torch op it calls and its inputs; each
+    recorded op then runs again on each of `devices` (card, CPU) from the
+    CPU's inputs, so an op whose outputs differ computes otherwise on the
+    two devices from the same inputs.  `lane` reads row `lane` of outputs
+    whose first dimension is the batch's.  Returns [(file:line in the
+    port, op, largest ulp distance of its float output, or 1 where an
+    integer or boolean output differs)] for every op with a tensor
+    output."""
     import torch
+    from torch.overrides import TorchFunctionMode, resolve_name
+    from torch.utils._pytree import tree_leaves, tree_map
 
-    t = torch.from_numpy(x).to(device)
-    out = (torch.bmm(t, t.transpose(1, 2)) if gram
-           else torch.bmm(t.transpose(1, 2), t))
-    return out[lane].cpu().numpy()
+    def on(d):
+        return lambda x: (x.to(d) if isinstance(x, torch.Tensor) else
+                          d if isinstance(x, torch.device) else x)
 
+    def versions(tree):
+        return [x._version for x in tree_leaves(tree)
+                if isinstance(x, torch.Tensor)]
 
-def _op_chain(steps, state: dict, devices) -> list:
-    """Where a chain of ops parts between devices: each op of `steps`
-    ((name, fn), fn(dict of tensors) -> dict of new tensors) runs on each
-    of `devices` (card, CPU) from the CPU's values of the ops before it,
-    so an op whose outputs differ computes otherwise on the two devices
-    from the same inputs.  Returns [(name, largest ulp distance of its
-    outputs)]."""
-    import torch
+    ops = []
 
-    out = []
-    for name, fn in steps:
+    class Record(TorchFunctionMode):
+        def __torch_function__(self, func, types, a=(), kw=None):
+            kw = kw or {}
+            seen = versions((a, kw))
+            out = func(*a, **kw)
+            if isinstance(out, torch.Tensor):
+                ops.append((_port_line(), func, (a, kw), seen))
+            return out
+
+    host = tree_map(lambda x: torch.from_numpy(np.ascontiguousarray(x))
+                    if isinstance(x, np.ndarray) else x, (args, kwargs))
+    batch = host[0][0].shape[0]
+    with Record():
+        fn(*host[0], **host[1])
+    chain = []
+    for where, func, (a, kw), seen in ops:
+        name = (resolve_name(func) or getattr(func, "__name__", str(func)))
+        name = name.replace("torch.Tensor.", "").replace("torch.", "")
+        # The inputs are kept by reference: none may have been written in
+        # place after the op read it.
+        check(versions((a, kw)) == seen,
+              f"_op_chain: an input of {name} at {where} was written later")
         res = []
         for d in devices:
-            r = fn({k: torch.from_numpy(np.ascontiguousarray(v)).to(d)
-                    for k, v in state.items()})
-            res.append({k: v.cpu().numpy() for k, v in r.items()})
-        out.append((name, max(_ulps(res[0][k], res[1][k]) for k in res[0])))
-        state = {**state, **res[-1]}
-    return out
-
-
-def _eigen_steps():
-    """The smallest eigenvector of a symmetric 3x3 `A` op by op, as
-    core/geometry.py's sym3x3_eigenvalues and _eigenvector_for compute it
-    (Smith 1961)."""
-    import torch
-    from mono_lidar_depth_tpu_torch.core import geometry as G
-
-    def qB(s):
-        A = s["A"]
-        q = G._div(A[..., 0, 0] + A[..., 1, 1] + A[..., 2, 2], 3.0)
-        return {"q": q, "B": A - q[..., None, None] * torch.eye(
-            3, dtype=A.dtype, device=A.device)}
-
-    def p(s):
-        sq = (s["B"] * s["B"]).flatten(-2)
-        p2 = sq[..., 0]
-        for k in range(1, 9):
-            p2 = p2 + sq[..., k]
-        return {"p": torch.sqrt(torch.clamp(G._div(p2, 6.0), min=0.0))}
-
-    return [
-        ("q, B", qB), ("p", p),
-        ("det3", lambda s: {"det": G._det3(s["B"])}),
-        ("r", lambda s: {"r": torch.clamp(
-            s["det"] / (2.0 * G._nonzero(s["p"]) ** 3), -1.0, 1.0)}),
-        ("arccos", lambda s: {"phi": G._div(torch.arccos(s["r"]), 3.0)}),
-        # a form tried for the card: arccos in float64 there, rounded,
-        # against the CPU's float32 arccos as it is
-        ("arccos in float64 on the card", lambda s: {"phi": G._div(
-            torch.arccos(s["r"].double()).float() if s["r"].is_cuda
-            else torch.arccos(s["r"]), 3.0)}),
-        ("cos", lambda s: {"c": torch.cos(s["phi"] + 2.0 * math.pi / 3.0)}),
-        ("cos in float64 on the card", lambda s: {"c": (
-            torch.cos((s["phi"] + 2.0 * math.pi / 3.0).double()).float()
-            if s["phi"].is_cuda
-            else torch.cos(s["phi"] + 2.0 * math.pi / 3.0))}),
-        ("e_lo", lambda s: {"e": s["q"] + 2.0 * s["p"] * s["c"]}),
-        ("eigenvector", lambda s: {"v": G._eigenvector_for(s["A"], s["e"])}),
-    ]
-
-
-def _ls_plane_steps():
-    """core/ransac.py's `_ls_plane` (the RANSAC refit) op by op."""
-    import torch
-    from mono_lidar_depth_tpu_torch.core import geometry as G
-
-    def centroid(s):
-        return {"c": (s["pts"] * s["w"][:, None]).sum(0) / torch.where(
-            s["wsum"] == 0, 1.0, s["wsum"])}
-
-    return [
-        ("sum of weights", lambda s: {"wsum": s["w"].sum()}),
-        ("centroid", centroid),
-        ("centered", lambda s: {"ctr": (s["pts"] - s["c"]) * torch.sqrt(
-            s["w"])[:, None]}),
-        ("scatter (matmul)", lambda s: {"S": s["ctr"].T @ s["ctr"]}),
-        ("normal", lambda s: {"n": G.smallest_eigenvector_sym3x3(s["S"])}),
-        ("offset", lambda s: {"d": -G.dot3(s["n"], s["c"])}),
-    ]
+            a_d, kw_d = tree_map(on(d), (a, kw))
+            r = func(*a_d, **kw_d).cpu()
+            if lane is not None and r.dim() and r.shape[0] == batch:
+                r = r[lane]
+            res.append(r)
+        dist = (_ulps(res[0].numpy(), res[1].numpy())
+                if res[0].is_floating_point()
+                else int(not torch.equal(res[0], res[1])))
+        chain.append((where, name, dist))
+    return chain
 
 
 def _chain_text(chain) -> str:
-    first = next((name for name, u in chain if u), "none")
-    return (", ".join(f"{name} {u}" for name, u in chain)
-            + f" ulp (first op to part: {first})")
+    """The ops of an `_op_chain` that part, in call order, and the first."""
+    parted = [(where, name, u) for where, name, u in chain if u]
+    shown = ", ".join(f"{where} {name} {u}" for where, name, u in parted[:8])
+    first = f"{parted[0][1]} at {parted[0][0]}" if parted else "none"
+    return (f"{len(chain)} ops, {len(parted)} parting: {shown or 'none'}"
+            f"{' ...' if len(parted) > 8 else ''} ulp (first op to part: "
+            f"{first})")
 
 
 def _refit_text(g: dict, c: dict, devices) -> str:
@@ -3166,14 +3155,16 @@ def _refit_text(g: dict, c: dict, devices) -> str:
     its coefficients and, op by op from the same inputs, where it parts."""
     if not g["_ls_plane"]:
         return ""
-    (pg, wg), cg = g["_ls_plane"][0]
-    (pc, wc), cc = c["_ls_plane"][0]
+    (pg, wg), cg, _ = g["_ls_plane"][0]
+    (pc, wc), cc, kc = c["_ls_plane"][0]
     text = (f" (RANSAC refit in the lidar frame: inputs "
             f"{max(_ulps(pg, pc), _ulps(wg, wc))} ulp, coefficients "
             f"{_ulps(cg, cc)} ulp apart")
     if devices is not None:
+        from mono_lidar_depth_tpu_torch.core import ransac
+
         text += ("; op by op from the CPU's inputs: " + _chain_text(
-            _op_chain(_ls_plane_steps(), {"pts": pc, "w": wc}, devices)))
+            _op_chain(ransac._ls_plane, (pc, wc), kc, devices)))
     return text + ")"
 
 
@@ -3183,12 +3174,14 @@ def _cascade_split(cfg, cam, uv, lane: int, g: dict, c: dict,
     (`_CascadeTrace.calls` of one `estimate_depths` each, card `g` and CPU
     `c`), step by step: (1) points_cam and uv of the lane's gathered
     neighbours at both scales, (2) the histogram segment, (3) the
-    triangle, with the Gram matrix that ranks its corners (a `torch.bmm`,
-    core/planefit.py) recomputed on both `devices` (card, CPU) from the
-    same points, (4) the plane and its depth, (5) the road pass's inputs,
-    its scatter matrix (a `torch.bmm`) and plane, (6) the global and local
-    gate margins.  Returns (the first step whose values are not
-    bit-equal, one line per step)."""
+    triangle, (4) the plane and its depth, (5) the road pass's inputs,
+    its scatter matrix and plane, (6) the global and local gate margins.
+    With `devices` (card, CPU), the triangle, the ground plane's RANSAC
+    refit and the road plane's fit are also replayed op by op on both
+    from the CPU's inputs (`_op_chain`).  Returns (the first step whose
+    values are not bit-equal, one line per step)."""
+    from mono_lidar_depth_tpu_torch.core import planefit
+
     i = lane
     lines, first = [], None
 
@@ -3250,13 +3243,11 @@ def _cascade_split(cfg, cam, uv, lane: int, g: dict, c: dict,
                 f"m apart ({_ulps(tg.corners[i], tc.corners[i])} ulp), span "
                 f"gaps {_span_gap(tg.corners[i], tc.corners[i])}, ok "
                 f"{bool(tg.ok[i])}/{bool(tc.ok[i])}")
-        pts = c["max_spanning_triangle"][0][0][0]
         if devices is not None:
-            grams = [_bmm_lane(pts, i, d, True) for d in devices]
-            text += (f"; Gram matrix of the CPU's points on card/CPU "
-                     f"{_ulps(*grams)} ulp apart on "
-                     f"{int((grams[0] != grams[1]).sum())} of "
-                     f"{grams[0].size} entries")
+            args, _, kw = c["max_spanning_triangle"][0]
+            text += ("; op by op from the CPU's inputs: " + _chain_text(
+                _op_chain(planefit.max_spanning_triangle, args, kw, devices,
+                          i)))
         step("3 triangle", np.array_equal(tg.corners[i], tc.corners[i]), text)
 
     def plane_at(t, n):
@@ -3288,19 +3279,17 @@ def _cascade_split(cfg, cam, uv, lane: int, g: dict, c: dict,
             f"{ins[0][1]}/{ins[1][1]}, plane ok {ins[0][2]}/{ins[1][2]}")
     equal = np.array_equal(coeffs[0], coeffs[1]) and ins[0] == ins[1]
     if g["_scatter3"]:
-        (ag,), sg = g["_scatter3"][0]
-        (ac,), sc_ = c["_scatter3"][0]
+        (ag,), sg, _ = g["_scatter3"][0]
+        (ac,), sc_, _ = c["_scatter3"][0]
         equal &= np.array_equal(ag[i], ac[i]) and np.array_equal(sg[i], sc_[i])
         text += (f"; weighted centered points {_ulps(ag[i], ac[i])} ulp, "
-                 f"scatter (torch.bmm) {_ulps(sg[i], sc_[i])} ulp apart, "
-                 f"the CPU's as float32 bits "
-                 f"{sc_[i].view(np.uint32).ravel().tolist()}")
-        if devices is not None:
-            sc2 = [_bmm_lane(ac, i, d, False) for d in devices]
-            text += (f", the scatter of the CPU's points on card/CPU "
-                     f"{_ulps(*sc2)} ulp apart")
-            text += (f"; the road normal op by op from the CPU's scatter: "
-                     f"{_chain_text(_op_chain(_eigen_steps(), {'A': sc_[i:i + 1]}, devices))}")
+                 f"scatter {_ulps(sg[i], sc_[i])} ulp apart, the CPU's as "
+                 f"float32 bits {sc_[i].view(np.uint32).ravel().tolist()}")
+    if g["mestimator_plane"] and devices is not None:
+        args, _, kw = c["mestimator_plane"][0]
+        text += ("; the road plane's fit op by op from the CPU's inputs: "
+                 + _chain_text(_op_chain(planefit.mestimator_plane, args, kw,
+                                         devices, i)))
     if g["mestimator_plane"]:
         mg, mc = (t["mestimator_plane"][0][1] for t in (g, c))
         road = [np.r_[m.normal[i], -np.dot(m.normal[i], m.anchor[i])]
@@ -3323,7 +3312,7 @@ def _cascade_split(cfg, cam, uv, lane: int, g: dict, c: dict,
     for n, (ag, ac) in enumerate(zip(g["_apply_depth_gates"],
                                      c["_apply_depth_gates"])):
         row = []
-        for args, out in (ag, ac):
+        for args, out, _ in (ag, ac):
             depth, nz, seg = args[1][i], args[2][i], args[3][i]
             lo_z = nz[seg].min() if seg.any() else np.inf
             hi_z = nz[seg].max() if seg.any() else -np.inf
@@ -3698,18 +3687,26 @@ def main() -> int:
     seq = render_sequence(SyntheticSpec(frames=IMAGE_FRAMES), seed=SEED)
     render_s = time.perf_counter() - t0
 
-    kern = phase_kernels(card)
-    lk = phase_lk(card, seq.image(0), seq.image(1))
-    gather = phase_gather(card)
-    gate = phase_gate(card, seq.image(0), seq.image(1))
-    launches = phase_main(card)
-    phase_agree(card)
-    img_launches = phase_images(card, seq, render_s)
-    seq_launches = phase_sequence(card, seq)
-    pg_launches = phase_posegraph(card)
-    dist_launches = phase_dist(card)
-    bench_launches = phase_bench(card)
-    end_launches = phase_endurance(card)
+    seconds = {}
+
+    def timed(phase, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = round(time.perf_counter() - t, 1)
+        return out
+
+    kern = timed(3, phase_kernels, card)
+    lk = timed("3 lk", phase_lk, card, seq.image(0), seq.image(1))
+    gather = timed("3 gather", phase_gather, card)
+    gate = timed("3 gate", phase_gate, card, seq.image(0), seq.image(1))
+    launches = timed(4, phase_main, card)
+    timed(5, phase_agree, card)
+    img_launches = timed(6, phase_images, card, seq, render_s)
+    seq_launches = timed(7, phase_sequence, card, seq)
+    pg_launches = timed(8, phase_posegraph, card)
+    dist_launches = timed(9, phase_dist, card)
+    bench_launches = timed(10, phase_bench, card)
+    end_launches = timed(11, phase_endurance, card)
 
     # Per kernel: `launches` of its main paths' runs (phase 4's
     # feature-fed path, phase 6's image-fed path, phase 7's sequence
@@ -3768,6 +3765,7 @@ def main() -> int:
          "max_abs_err": gate["max_abs_err"], "ms": gate["ms"],
          "plain_ms": gate["plain_ms"], "bound_ms": gate["bound_ms"],
          "bound_by": gate["bound_by"], "library_ms": gate["library_ms"]}]}))
+    log(f"chip_smoke: seconds per phase {seconds}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -279,11 +279,9 @@ def _stage(name: str, entry: dict) -> None:
 
 
 def run(frames: int = 2048, checkpoint_at: int = 1024,
-        device="cuda:0", skip_checkpoint: bool = False,
-        spec: Optional[SyntheticSpec] = None) -> dict:
+        device="cuda:0", skip_checkpoint: bool = False) -> dict:
     """All five stages on `device`; returns the record and prints one
-    JSON line per stage.  `spec` replaces the reference's sequence (its
-    `frames` then wins over `frames`)."""
+    JSON line per stage."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("endurance_run_torch: no CUDA device; pass "
@@ -291,8 +289,7 @@ def run(frames: int = 2048, checkpoint_at: int = 1024,
     precision.enforce_fp32()
     if not precision.fp32_enforced():
         raise RuntimeError("TF32 is not off")
-    spec = spec or endurance_spec(frames)
-    frames = spec.frames
+    spec = endurance_spec(frames)
     port = {"card": bench_torch.card_line(dev), "torch": torch.__version__,
             "device": str(dev), "launches": {}, "verify_calls": {},
             "verify_s": {}, "solves": {}}

@@ -356,3 +356,41 @@ def test_phase_10_lane_report(shift):
         else:
             assert first == "none" and all("bit-equal" in ln for ln in lines)
             assert "first op to part: none" in lines[4]
+
+
+def test_op_chain_replays_the_ports_own_ops():
+    """chip_smoke.py's `_op_chain` (phase 10's op-by-op replay) records the
+    ops of the port's function itself, each named by its file and line in
+    the port: here the road normal of lane 1:1208's saved scatter, whose
+    eigensolver calls `torch.arccos` and `torch.cos` in core/geometry.py.
+    On one device every op reads 0 ulp, and an input written in place
+    after an op read it fails the replay rather than replaying the wrong
+    value."""
+    from pathlib import Path
+
+    from mono_lidar_depth_tpu_torch.core import geometry
+
+    root = Path(__file__).parent
+    bits = json.loads((root / "fixtures" / "phase10_road_scatter.json")
+                      .read_text())["lanes"]["1:1208"]
+    A = np.array(bits, np.uint32).view(np.float32).reshape(1, 3, 3)
+    cpu = torch.device("cpu")
+    chain = chip_smoke._op_chain(geometry.smallest_eigenvector_sym3x3, (A,),
+                                 {}, (cpu, cpu), 0)
+    src = (root.parent / "mono_lidar_depth_tpu_torch" / "core"
+           / "geometry.py").read_text().splitlines()
+    line = {op: next(n for n, s in enumerate(src, 1) if f"torch.{op}(" in s)
+            for op in ("arccos", "cos")}
+    for op, n in line.items():
+        assert (f"core/geometry.py:{n}", op, 0) in chain, (op, chain)
+    assert all(u == 0 for *_, u in chain)
+    assert chip_smoke._chain_text(chain).endswith(
+        "ulp (first op to part: none)")
+
+    def writes_its_input(x):
+        y = x * 2.0
+        x.add_(1.0)
+        return y
+
+    with pytest.raises(AssertionError, match="written later"):
+        chip_smoke._op_chain(writes_its_input, (A.copy(),), {}, (cpu, cpu))
