@@ -100,6 +100,19 @@ Phases, each printed on its own lines:
                higher than the VO's, and exactly one gather_neighbors,
                lk_track and zncc_gate launch per VO step and per
                verification direction.
+ 12. parity  — scripts/make_parity_record_torch.run: its stages 2-4b in
+               process at PARITY_FRAMES frames (config 2's six modes, config
+               3's three re-initialized runs and the persisted one, configs
+               4 and 4b), its subprocess legs at their smallest (the density
+               sweep at one density, veto on and off; the scaling table at
+               PARITY_RANKS; the 2-process demo): the record's keys are
+               scripts/make_parity_record.py's and its three scripts' (read
+               from their sources), every success share in (0, 1), every ATE
+               finite, no failed leg, the demo's match, each kernel's
+               launches exact per stage; then road_veto_off, production and
+               persisted landmarks, card against CPU over the first
+               PARITY_AGREE_FRAMES frames (codes at phase 7's bar, poses at
+               phase 6's).
 
 The kernels' JSON record and the card line (nvidia-smi's name and power
 limit) come just before the last line, which is {"ok": true, "device":
@@ -203,16 +216,29 @@ KITTI00_TOL = (1e-6, 2e-4)
 # landmarks), the pose graph at KITTI00_TOL.  The dryrun's observations are
 # exact, so its final BA cost is near 0 (2.5e-5 from 1.19e5) and rounding
 # noise relative to itself: the cost bar is rtol or DIST_BA_COST_ATOL of
-# the initial cost, whichever is larger.
+# the initial cost, whichever is larger.  The pose graph runs one GN
+# iteration (two until phase 12 was added): each takes ~10 s at 4541 poses
+# in each of the four solves.
 DIST_RANKS = 2
 DIST_BA_ITERS = 3
-DIST_PG = dict(gn_iters=2, cg_iters=10)
+DIST_PG = dict(gn_iters=1, cg_iters=10)
 DIST_BA_TOL = (1e-3, 1e-4, 1e-3, 1e-2)
 DIST_BA_COST_ATOL = 1e-9
 DIST_TIMED_ITERS = 5  # BA iterations per timing
 BENCH_FRAMES = 8  # frames of phase 10's bench_torch run
 ENDURANCE_FRAMES = 256  # phase 11: one 220-frame lap and 36 revisit frames
 ENDURANCE_CHECKPOINT = 128  # phase 11 checkpoints here and resumes
+# Phase 12: scripts/make_parity_record_torch.run at make_parity_record.py's
+# --quick size; its sweep at PARITY_SWEEP (frames, lidar rows), veto on and
+# off; its scaling table at PARITY_RANKS; then road_veto_off, production
+# and persisted landmarks card against CPU over PARITY_AGREE_FRAMES frames
+# at phase 7's code bar and phase 6's pose bar (|dR|, |dt| m).
+PARITY_FRAMES = 60
+PARITY_SWEEP = (24, 20)
+PARITY_RANKS = (1, 2)
+PARITY_AGREE_FRAMES = 8
+PARITY_CODE_BAR = 0.998
+PARITY_POSE_BAR = (1e-3, 5e-3)
 
 
 def check_no_spills(build_log: str, source: str) -> None:
@@ -3561,16 +3587,7 @@ def endurance_py_keys() -> tuple[list, dict]:
 
 def load_endurance():
     """scripts/endurance_run_torch.py as a module."""
-    import importlib.util
-    import os
-
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "scripts", "endurance_run_torch.py")
-    spec = importlib.util.spec_from_file_location("endurance_run_torch",
-                                                  path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    return load_script("endurance_run_torch")
 
 
 def check_endurance_keys(rec: dict) -> None:
@@ -3593,6 +3610,7 @@ def phase_endurance(card: str) -> dict:
     import io
 
     from mono_lidar_depth_tpu_torch.core import neighbors, windows
+    from mono_lidar_depth_tpu_torch.obs.launches import kernel_launches
     from mono_lidar_depth_tpu_torch.tracker import klt
 
     e = load_endurance()
@@ -3603,7 +3621,7 @@ def phase_endurance(card: str) -> dict:
     with contextlib.redirect_stdout(printed):
         rec = e.run(ENDURANCE_FRAMES, ENDURANCE_CHECKPOINT, "cuda")
     wall = time.perf_counter() - t0
-    total = e.kernel_launches()
+    total = kernel_launches()
     lines = [json.loads(ln) for ln in printed.getvalue().splitlines()]
     stages = ["vo", "checkpoint_resume", "pose_graph",
               "pose_graph_high_drift"]
@@ -3646,6 +3664,316 @@ def phase_endurance(card: str) -> dict:
     log(f"phase 11 endurance: launches per stage {port['launches']} (one "
         f"gather_neighbors, lk_track and zncc_gate per VO step and per "
         f"verification direction), total {total} [{card}]")
+    return total
+
+
+# --------------------------------------------------------------- phase 12
+
+def load_script(name: str):
+    """scripts/<name>.py as a module."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _script_ast(name: str):
+    import ast
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", f"{name}.py")
+    with open(path) as fh:
+        return ast.parse(fh.read())
+
+
+def _printed_dict_keys(tree) -> list:
+    """The keys of every `print(json.dumps({...}))` dict literal, in
+    source order."""
+    import ast
+
+    calls = sorted((n for n in ast.walk(tree) if isinstance(n, ast.Call)
+                    and ast.unparse(n.func) == "json.dumps" and n.args
+                    and isinstance(n.args[0], ast.Dict)),
+                   key=lambda n: (n.lineno, n.col_offset))
+    return [[k.value for k in c.args[0].keys] for c in calls]
+
+
+def parity_py_keys() -> dict:
+    """The keys of scripts/make_parity_record.py's record, read from its
+    source and from the sources of the three scripts it runs: {path: the
+    key list there}, where a path is () for the top level, (entry,) for
+    an entry, (entry, row) for a config-2 or config-3 row, (entry, "*")
+    for every row of a sweep, ("scaling", i) for the i-th scaling line
+    and ("multihost_demo", "tail") for the demo's JSON line."""
+    import ast
+
+    tree = _script_ast("make_parity_record")
+    fns = {n.name: n for n in ast.walk(tree)
+           if isinstance(n, ast.FunctionDef)}
+    main = fns["main"]
+    keys: dict = {(): []}
+    assigns = sorted((n for n in ast.walk(main)
+                      if isinstance(n, (ast.Assign, ast.AnnAssign))),
+                     key=lambda n: n.lineno)
+
+    def dict_keys(node):
+        return [k.value for k in node.keys]
+
+    loop = next(n for n in ast.walk(main) if isinstance(n, ast.For)
+                and ast.unparse(n.target) == "(name, kw)")
+    modes = [e.elts[0].value for e in loop.iter.elts]
+    for node in assigns:
+        target = node.target if isinstance(node, ast.AnnAssign) \
+            else node.targets[0]
+        text = ast.unparse(target)
+        if text == "rec" and isinstance(node.value, ast.Dict):
+            keys[()] += dict_keys(node.value)
+        elif (isinstance(target, ast.Subscript)
+              and ast.unparse(target.value) == "rec"):
+            k = target.slice.value
+            if k not in keys[()]:
+                keys[()].append(k)
+            if isinstance(node.value, ast.Dict):
+                keys[(k,)] = dict_keys(node.value)
+        elif text == "depth[name]":
+            for m in modes:
+                keys[("depth", m)] = dict_keys(node.value)
+        elif text == "depth['fast_rasterization']":
+            keys[("depth", "fast_rasterization")] = dict_keys(node.value)
+        elif text.startswith("depth['ransac']["):
+            keys[("depth", "ransac")].append(target.slice.value)
+        elif text.startswith("vo_rec['reinit']["):
+            keys.setdefault(("vo", "reinit"), []).append(target.slice.value)
+    metrics = next(n.value for n in ast.walk(fns["vo_metrics"])
+                   if isinstance(n, ast.Return))
+    keys[("vo", "reinit")] = dict_keys(metrics) + keys.get(("vo", "reinit"),
+                                                           [])
+    keys[("vo", "persist")] = dict_keys(metrics)
+    keys[("depth",)] = modes + ["fast_rasterization"]
+    keys[("vo",)] = ["reinit", "persist"]
+    row = next(n.value for n in ast.walk(_script_ast("exp_success_rate"))
+               if isinstance(n, ast.Assign)
+               and ast.unparse(n.targets[0]) == "row")
+    for k in ("density_sweep", "density_sweep_veto_off"):
+        keys[(k, "*")] = dict_keys(row)
+    for i, line in enumerate(_printed_dict_keys(_script_ast("bench_scaling"))):
+        keys[("scaling", i)] = line
+    keys[("multihost_demo", "tail")] = _printed_dict_keys(
+        _script_ast("multihost_demo"))[0]
+    return keys
+
+
+def check_parity_keys(rec: dict) -> None:
+    """The record's keys are the reference's (parity_py_keys), plus
+    `port`, at every level; no leg is an {"error": ...}."""
+    keys = parity_py_keys()
+    check([k for k in rec if k != "port"] == keys[()] and "port" in rec,
+          f"parity record keys {list(rec)}, want {keys[()]} + ['port']")
+    for path, want in keys.items():
+        if not path:
+            continue
+        if path[-1] == "*":
+            rows = rec[path[0]]
+            check(len(rows) > 0 and all(list(r) == want for r in rows),
+                  f"parity record {path[0]}: rows {rows}, want keys {want}")
+        elif path[0] == "scaling":
+            row = rec["scaling"][path[1]]
+            check(list(row) == want,
+                  f"parity record scaling line {path[1]}: {row}, want keys "
+                  f"{want}")
+        elif path == ("multihost_demo", "tail"):
+            mh = rec["multihost_demo"]
+            check(mh["ok"], f"parity record: the demo failed: {mh}")
+            check(list(json.loads(mh["tail"][-1])) == want,
+                  f"parity record demo line {mh['tail']}, want keys {want}")
+        else:
+            node = rec
+            for p in path:
+                node = node[p]
+            check(list(node) == want,
+                  f"parity record {path}: keys {list(node)}, want {want}")
+    check(len(rec["scaling"]) == len(
+        [p for p in keys if p and p[0] == "scaling"]),
+        f"parity record scaling: {rec['scaling']}")
+
+
+def parity_card_vs_cpu(P, seq, card: str) -> None:
+    """road_veto_off, production and persisted landmarks over the first
+    PARITY_AGREE_FRAMES frames, on the card and on the CPU from the card's
+    tracker outputs and the same numpy RANSAC draws: codes of every frame
+    (process_frame) and poses (odometry_step)."""
+    import torch
+    import mono_lidar_depth_tpu_torch as T
+    from mono_lidar_depth_tpu_torch.core.ransac import RansacDraws
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    base = P.record_config()
+    modes = {name: over for name, over, _ in P.MODES}
+    cam = seq.camera
+    for name, cfg, ocfg in (
+            ("road_veto_off", base.replace(**modes["road_veto_off"]),
+             T.OdometryConfig()),
+            ("production", base.replace(**modes["production"]),
+             T.OdometryConfig()),
+            ("persist", base, T.OdometryConfig(persist_landmarks=True))):
+        prime: list = []
+        inputs = [f for f, _ in T.frame_inputs(
+            seq, cfg, max_frames=PARITY_AGREE_FRAMES + 1, prime=prime,
+            device=dev, seed=SEED)]
+        rng = np.random.default_rng(SEED + 12)
+        draws = [_numpy_draws(rng, cfg, int(prime[0][1].sum()))] + [
+            _numpy_draws(rng, cfg, int(f.cloud_valid.sum())) for f in inputs]
+
+        def run(d):
+            l2c = seq.lidar_to_cam(d)
+
+            def rd(k):
+                return RansacDraws(*(torch.from_numpy(a).to(d)
+                                     for a in draws[k]))
+
+            state = T.OdometryState.create(cfg, ocfg, P.VO_KW["max_tracks"],
+                                           P.VO_KW["max_length"], d)
+            state = state._replace(tracklets=T.prime_state(
+                cfg, cam, l2c, state.tracklets, prime[0][0].to(d),
+                prime[0][1].to(d), rd(0)))
+            poses, codes = [], []
+            for k, f in enumerate(inputs, 1):
+                frame = T.FrameInput(*(x.to(d) for x in f[:7]), rng=rd(k))
+                _, _, cod = T.process_frame(cfg, cam, l2c, state.tracklets,
+                                            frame)
+                state, R_cw, t_cw, _ = T.odometry_step(cfg, ocfg, cam, l2c,
+                                                       state, frame)
+                poses.append((R_cw.cpu().numpy(), t_cw.cpu().numpy()))
+                codes.append(cod.cpu().numpy())
+            return poses, np.concatenate(codes)
+
+        t0 = time.perf_counter()
+        (g_poses, g_codes), (c_poses, c_codes) = run(dev), run(cpu)
+        agree = float(np.mean(g_codes == c_codes))
+        dR = max(float(np.abs(a[0] - b[0]).max())
+                 for a, b in zip(g_poses, c_poses))
+        dt = max(float(np.abs(a[1] - b[1]).max())
+                 for a, b in zip(g_poses, c_poses))
+        log(f"phase 12 parity: card vs CPU plain versions, {name}, "
+            f"{PARITY_AGREE_FRAMES} frames ({time.perf_counter() - t0:.1f} "
+            f"s): codes agree {agree:.5f} ({int((g_codes != c_codes).sum())}"
+            f" of {g_codes.size} differ), poses max |dR| {dR:.2e}, max |dt| "
+            f"{dt:.2e} m [{card}]")
+        check(agree >= PARITY_CODE_BAR,
+              f"{name}: card/CPU codes agree {agree:.5f} < {PARITY_CODE_BAR}")
+        check(dR <= PARITY_POSE_BAR[0] and dt <= PARITY_POSE_BAR[1],
+              f"{name}: card/CPU poses differ: |dR| {dR:.2e}, |dt| {dt:.2e}")
+
+
+def phase_parity(card: str) -> dict:
+    """scripts/make_parity_record_torch.run on the card: stages 2-4b in
+    process at PARITY_FRAMES frames (make_parity_record.py's --quick
+    size), its three subprocess legs at their smallest (the sweep at
+    PARITY_SWEEP's frames and rows, veto on and off; ranks PARITY_RANKS;
+    the demo's 2 processes); the kernel counts reset just before."""
+    import contextlib
+    import io
+
+    from mono_lidar_depth_tpu_torch.core import neighbors, windows
+    from mono_lidar_depth_tpu_torch.obs.launches import kernel_launches
+    from mono_lidar_depth_tpu_torch.tracker import klt
+
+    P = load_script("make_parity_record_torch")
+    frames, rows = PARITY_SWEEP
+    t0 = time.perf_counter()
+    neighbors.launches = windows.launches = 0
+    klt.launches = klt.gate_launches = 0
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rec = P.run(PARITY_FRAMES, "cuda", "chip_smoke", sweep_frames=frames,
+                    sweeps=(("density_sweep", ["--rows", str(rows)]),
+                            ("density_sweep_veto_off",
+                             ["--no-far-veto", "--rows", str(rows)])),
+                    ranks=PARITY_RANKS)
+    wall = time.perf_counter() - t0
+    total = kernel_launches()
+    port = rec["port"]
+    log(f"phase 12 parity: scripts/make_parity_record_torch.run, "
+        f"{PARITY_FRAMES} frames at 384x128, {wall:.1f} s (per stage "
+        f"{ {k: round(v, 1) for k, v in port['seconds'].items()} }): depth "
+        f"{json.dumps(rec['depth'])}; vo {json.dumps(rec['vo'])}; pose graph "
+        f"{json.dumps(rec['pose_graph'])}; drifted "
+        f"{json.dumps(rec['pose_graph_high_drift'])}; verification "
+        f"{port['verify']}; re-initialized runs {port['reinit_runs']} "
+        f"[{card}]")
+    log(f"phase 12 parity: sweep {json.dumps(rec['density_sweep'])}, veto "
+        f"off {json.dumps(rec['density_sweep_veto_off'])}; scaling "
+        f"{json.dumps(rec['scaling'])}; demo "
+        f"{json.dumps(rec['multihost_demo'])} [{card}]")
+    check_parity_keys(rec)
+    for name, row in rec["depth"].items():
+        for k in ("success_rate_all", "success_rate_lidar_covered"):
+            check(0.0 < row[k] < 1.0, f"parity {name}: {k} {row[k]}")
+    for key in ("density_sweep", "density_sweep_veto_off"):
+        for row in rec[key]:
+            for k in ("success_all", "success_covered"):
+                check(0.0 < row[k] < 1.0, f"parity {key}: {k} {row[k]}")
+    vo, pg, hd = rec["vo"], rec["pose_graph"], rec["pose_graph_high_drift"]
+    ates = [vo["reinit"]["ate_rmse_m"], vo["persist"]["ate_rmse_m"],
+            *vo["reinit"]["ate_runs_m"], pg["ate_vo_m"], hd["ate_drifted_m"]]
+    ates += [leg["ate_posegraph_m"] for leg in (pg, hd)
+             if leg["closures_used"]]  # NaN where no closure reached it
+    check(all(math.isfinite(a) for a in ates), f"parity ATEs {ates}")
+    demo = json.loads(rec["multihost_demo"]["tail"][-1])
+    check(demo["match"] is True, f"parity demo: {demo}")
+
+    # Exactly one lk_track, zncc_gate and gather_neighbors launch per
+    # processed frame (two gathers with region growing) and per
+    # verification direction, two directions per call.
+    steps = PARITY_FRAMES - 1
+
+    def each(n, gather=None):
+        return {"gather_neighbors": n if gather is None else gather,
+                "lk_track": n, "zncc_gate": n, "slice_windows": 0}
+
+    want = {name: each(2 * steps) for name, _, _ in P.MODES}
+    want["region_growing"] = each(2 * steps, 4 * steps)
+    want[P.FAST[0]] = each(steps)
+    want["device_time"] = each(2 * steps)  # a warm run, a timed one
+    got = {k: v["launches"] for k, v in port["depth"].items()}
+    check(got == want, f"parity depth launches {got}, want {want}")
+    want_stage = {
+        "depth": each(sum(v["lk_track"] for v in want.values()),
+                      sum(v["gather_neighbors"] for v in want.values())),
+        "vo": each(4 * steps),
+        "pose_graph": each(2 * port["verify"]["pose_graph"]["calls"]),
+        "pose_graph_high_drift": each(
+            2 * port["verify"]["pose_graph_high_drift"]["calls"])}
+    check(port["launches"] == want_stage,
+          f"parity launches per stage {port['launches']}, want {want_stage}")
+    legs = port["legs"]
+    for key in ("density_sweep", "density_sweep_veto_off"):
+        check(legs[key]["launches"] == each(frames - 1),
+              f"parity {key} launches {legs[key]['launches']}")
+    # each world: one untimed and REPS timed steps over B = 2 * max ranks
+    # frames, one gather per frame on whichever rank runs it
+    S = load_script("bench_scaling_torch")
+    frames_run = len(PARITY_RANKS) * (S.REPS + 1) * 2 * max(PARITY_RANKS)
+    check(legs["scaling"]["launches"] == each(0, frames_run),
+          f"parity scaling launches {legs['scaling']['launches']}, want "
+          f"{frames_run} gathers")
+    log(f"phase 12 parity: launches per stage {port['launches']}, per depth "
+        f"mode {got}, sweeps {legs['density_sweep']['launches']} / "
+        f"{legs['density_sweep_veto_off']['launches']}, scaling "
+        f"{legs['scaling']['launches']} (exact) [{card}]")
+
+    # card against the CPU on the rows this slice drives first on the card
+    seq = P.render_sequence(P.record_spec(PARITY_AGREE_FRAMES + 1))
+    parity_card_vs_cpu(P, seq, card)
+    for key in ("density_sweep", "density_sweep_veto_off", "scaling"):
+        for k, v in legs[key]["launches"].items():
+            total[k] += v
     return total
 
 
@@ -3707,11 +4035,13 @@ def main() -> int:
     dist_launches = timed(9, phase_dist, card)
     bench_launches = timed(10, phase_bench, card)
     end_launches = timed(11, phase_endurance, card)
+    par_launches = timed(12, phase_parity, card)
 
     # Per kernel: `launches` of its main paths' runs (phase 4's
     # feature-fed path, phase 6's image-fed path, phase 7's sequence
     # evaluators, phase 8's loop closure, phase 9's ranks, phase 10's
-    # bench and phase 11's endurance run, each counted from 0 just before
+    # bench, phase 11's endurance run and phase 12's evaluation record
+    # (with its subprocesses' own counts), each counted from 0 just before
     # it; the LK passes and the
     # gate run on the image-fed paths only; the window crop is launched by
     # neither any more, so its count is 0, and phase 3 goes on holding it
@@ -3733,14 +4063,16 @@ def main() -> int:
                       + img_launches["slice_windows"]
                       + seq_launches["slice_windows"]
                       + pg_launches["slice_windows"]
-                      + end_launches["slice_windows"]),
+                      + end_launches["slice_windows"]
+                      + par_launches["slice_windows"]),
          "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
          "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
          "bound_by": "bytes", "library_ms": kern["library_ms"]},
         {"name": "lk_track", "route": "cuda", "source": LK_SOURCE,
          "replaces": REPLACES,
          "launches": (img_launches["lk_track"] + seq_launches["lk_track"]
-                      + pg_launches["lk_track"] + end_launches["lk_track"]),
+                      + pg_launches["lk_track"] + end_launches["lk_track"]
+                      + par_launches["lk_track"]),
          "max_abs_err": lk["max_abs_err"], "ms": lk["ms"],
          "plain_ms": lk["plain_ms"], "bound_ms": lk["bound_ms"],
          "bound_by": lk["bound_by"], "library_ms": lk["library_ms"]},
@@ -3752,7 +4084,8 @@ def main() -> int:
                       + pg_launches["gather_neighbors"]
                       + dist_launches["gather_neighbors"]
                       + bench_launches["gather_neighbors"]
-                      + end_launches["gather_neighbors"]),
+                      + end_launches["gather_neighbors"]
+                      + par_launches["gather_neighbors"]),
          "max_abs_err": gather["max_abs_err"], "ms": gather["ms"],
          "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
          "bound_by": gather["bound_by"],
@@ -3761,7 +4094,8 @@ def main() -> int:
         {"name": "zncc_gate", "route": "cuda", "source": GATE_SOURCE,
          "replaces": REPLACES,
          "launches": (img_launches["zncc_gate"] + seq_launches["zncc_gate"]
-                      + pg_launches["zncc_gate"] + end_launches["zncc_gate"]),
+                      + pg_launches["zncc_gate"] + end_launches["zncc_gate"]
+                      + par_launches["zncc_gate"]),
          "max_abs_err": gate["max_abs_err"], "ms": gate["ms"],
          "plain_ms": gate["plain_ms"], "bound_ms": gate["bound_ms"],
          "bound_by": gate["bound_by"], "library_ms": gate["library_ms"]}]}))

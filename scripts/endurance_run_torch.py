@@ -60,7 +60,6 @@ sys.path.insert(0, str(REPO))
 
 import bench_torch  # noqa: E402  (the repo root is on the path now)
 from mono_lidar_depth_tpu_torch import DepthEstimatorConfig, precision  # noqa: E402
-from mono_lidar_depth_tpu_torch.core import neighbors, windows  # noqa: E402
 from mono_lidar_depth_tpu_torch.eval import (  # noqa: E402
     eval_vo_sequence, propose_loop_closures,
     propose_loop_closures_appearance, run_pose_graph_backend,
@@ -71,7 +70,8 @@ from mono_lidar_depth_tpu_torch.io.checkpoint import (  # noqa: E402
     load_checkpoint, save_checkpoint)
 from mono_lidar_depth_tpu_torch.io.synthetic_dataset import (  # noqa: E402
     SyntheticSpec, render_sequence)
-from mono_lidar_depth_tpu_torch.tracker import klt  # noqa: E402
+from mono_lidar_depth_tpu_torch.obs.launches import (  # noqa: E402
+    kernel_launches, launches_since)
 from mono_lidar_depth_tpu_torch.vo import closures  # noqa: E402
 from mono_lidar_depth_tpu_torch.vo.metrics import ate_rmse  # noqa: E402
 
@@ -104,17 +104,6 @@ def laps_of(spec: SyntheticSpec) -> int:
     """Whole laps of the spec's circuit (the closure budgets scale with
     it); at LAP_FRAMES this is the reference's `frames // 220`."""
     return max(1, spec.frames // (spec.lap_frames or spec.frames))
-
-
-def kernel_launches() -> dict:
-    """The kernel wrappers' launch counters, by the kernels' names."""
-    return {"gather_neighbors": neighbors.launches,
-            "lk_track": klt.launches, "zncc_gate": klt.gate_launches,
-            "slice_windows": windows.launches}
-
-
-def launches_since(before: dict) -> dict:
-    return {k: v - before[k] for k, v in kernel_launches().items()}
 
 
 def vo_stage(seq, cfg, device) -> tuple[dict, dict]:

@@ -34,7 +34,9 @@ LAZY_ONLY = ("PIL", "yaml")  # may be imported inside a function only
 SCRIPTS = ["chip_smoke.py", "profile_step.py", "gate_variants.py",
            "lk_scaling.py", "scripts/run_kitti_torch.py",
            "__graft_entry_torch__.py", "bench_torch.py",
-           "scripts/endurance_run_torch.py"]
+           "scripts/endurance_run_torch.py", "scripts/exp_success_rate_torch.py",
+           "scripts/bench_scaling_torch.py", "scripts/multihost_demo_torch.py",
+           "scripts/make_parity_record_torch.py"]
 
 
 def _port_modules():
@@ -50,7 +52,9 @@ def test_port_imports_no_jax():
         "'__graft_entry_torch__', 'bench_torch']:\n"
         "    importlib.import_module(m)\n"
         "import importlib.util as u\n"
-        "for name in ('run_kitti_torch', 'endurance_run_torch'):\n"
+        "for name in ('run_kitti_torch', 'endurance_run_torch', "
+        "'exp_success_rate_torch', 'bench_scaling_torch', "
+        "'multihost_demo_torch', 'make_parity_record_torch'):\n"
         "    spec = u.spec_from_file_location(name, f'scripts/{name}.py')\n"
         "    spec.loader.exec_module(u.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -97,7 +101,8 @@ def test_new_modules_are_covered():
             "io/messages.py", "io/checkpoint.py", "obs/timing.py",
             "vo/pose_graph.py", "vo/closures.py", "conversions/__init__.py",
             "conversions/convert.py", "collectives.py", "dist/__init__.py",
-            "dist/mesh.py", "dist/sharded.py", "dist/launch.py"} <= have
+            "dist/mesh.py", "dist/sharded.py", "dist/launch.py",
+            "obs/launches.py"} <= have
 
 
 @pytest.mark.parametrize("source", sorted(

@@ -229,12 +229,15 @@ def test_update_tracks_seed_length(T_slots, M):
     ("../bench_torch.py", ["frame_at", "ground_plane", "depth_frame",
                            "depth_leg", "combined_leg", "pose_gn_leg",
                            "window_ba_leg"]),
-    # the endurance twin: its per-pair memo (ClosureMemo.__call__), the
-    # drift injection over every frame and the launch counters it reads
-    # around each stage; its frames run inside eval_vo_sequence
-    ("../scripts/endurance_run_torch.py", ["__call__", "inject_drift",
-                                           "kernel_launches",
-                                           "launches_since"]),
+    # the endurance twin: its per-pair memo (ClosureMemo.__call__) and
+    # the drift injection over every frame; its frames run inside
+    # eval_vo_sequence
+    ("../scripts/endurance_run_torch.py", ["__call__", "inject_drift"]),
+    # the evaluation record's twin: its counted verification of a pair
+    # and the drift injection; its frames run inside the eval drivers
+    ("../scripts/make_parity_record_torch.py", ["__call__", "inject_drift"]),
+    # the launch counters the twins read around each stage
+    ("obs/launches.py", ["kernel_launches", "launches_since"]),
 ])
 def test_no_read_back_in_the_new_per_frame_code(path, functions):
     """Region growing, the semantic plane, the chunk runners, the pose
