@@ -3895,7 +3895,7 @@ def phase_parity(card: str) -> dict:
                     sweeps=(("density_sweep", ["--rows", str(rows)]),
                             ("density_sweep_veto_off",
                              ["--no-far-veto", "--rows", str(rows)])),
-                    ranks=PARITY_RANKS)
+                    ranks=PARITY_RANKS, replay=False)
     wall = time.perf_counter() - t0
     total = kernel_launches()
     port = rec["port"]

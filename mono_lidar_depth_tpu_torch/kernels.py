@@ -102,8 +102,9 @@ def build() -> Path:
     at once; returns the build directory."""
     out_dir = build_dir()
     todo = [s for s in _sources() if not library_path(s.stem).exists()]
-    if not todo:
-        build_info.update(path=str(out_dir), seconds=0.0, log="(cached)")
+    if not todo:  # a build made earlier in this process keeps its record
+        if build_info.get("path") != str(out_dir):
+            build_info.update(path=str(out_dir), seconds=0.0, log="(cached)")
         return out_dir
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()

@@ -46,8 +46,10 @@ Where it departs from the reference:
     the seconds of every stage, the kernel launches of every stage, each
     depth mode's cold and warm seconds and launches, the kernels' build
     seconds, the verification calls of configs 4 and 4b, the three
-    re-initialized runs' largest pose difference, and the subprocesses'
-    own `port` lines.
+    re-initialized runs' largest pose difference, the subprocesses' own
+    `port` lines, and on a card config 3's first run replayed on the CPU
+    from the card's RANSAC draws (`replay_on_cpu`): where the card's
+    trajectory parts from the CPU's.
   * A subprocess leg that fails records {"error": ...} (the demo: ok
     false), as the reference does when one raises.
 """
@@ -71,6 +73,9 @@ sys.path.insert(0, str(REPO))
 
 import bench_torch  # noqa: E402  (the repo root is on the path now)
 from mono_lidar_depth_tpu_torch import DepthEstimatorConfig, kernels  # noqa: E402
+from mono_lidar_depth_tpu_torch.core.ransac import (  # noqa: E402
+    RansacDraws, draw_ransac)
+from mono_lidar_depth_tpu_torch.eval import kitti_eval  # noqa: E402
 from mono_lidar_depth_tpu_torch.eval import (  # noqa: E402
     eval_depth_sequence, eval_vo_sequence, measure_depth_device_time,
     propose_loop_closures, propose_loop_closures_appearance,
@@ -115,6 +120,9 @@ SWEEPS = (("density_sweep", []),
           ("density_sweep_veto_off", ["--no-far-veto", "--rows", "20", "64"]))
 SCALING_RANKS = (1, 2, 4)
 SWEEP_TIMEOUT_S, SCALING_TIMEOUT_S, DEMO_TIMEOUT_S = 3600, 1800, 900
+# A card's poses against the CPU's from the same inputs and draws
+# (chip_smoke.py phase 6's bars): rotation entries, translations (m).
+POSE_BAR = (1e-3, 5e-3)
 
 
 def record_spec(frames: int) -> SyntheticSpec:
@@ -215,6 +223,46 @@ def vo_stage(seq, cfg, device, port: dict) -> tuple[dict, dict]:
     runs["persist"] = vo
     vo_rec["persist"] = vo_metrics(vo)
     return vo_rec, runs
+
+
+def card_draws(seq, cfg, device) -> list:
+    """Every frame's RANSAC sample as a run on `device` draws it (the
+    generator of the frame's seed, over the frame's valid prefix), moved
+    to the CPU."""
+    out = []
+    for f, (_, count) in enumerate(seq.scans(cfg.max_points)):
+        valid = torch.arange(cfg.max_points, device=device) < count
+        gen = kitti_eval._frame_rng(kitti_eval._frame_seed(0, f), device)
+        d = draw_ransac(valid, gen, cfg.ransac_num_hypotheses,
+                        cfg.ransac_subsample_points)
+        out.append(RansacDraws(d.sub_idx.cpu(), d.picks.cpu()))
+    return out
+
+
+def replay_on_cpu(seq, cfg, vo: dict, device) -> dict:
+    """Config 3's first re-initialized run (`vo`, made on `device`) again
+    on the CPU from the same RANSAC draws: the CPU's ATE and RPE, how far
+    its poses lie from `vo`'s, and the first frame where they part by
+    more than POSE_BAR (None: never)."""
+    draws = card_draws(seq, cfg, device)
+    real = kitti_eval._frame_seed, kitti_eval._frame_rng
+    kitti_eval._frame_seed = lambda seed, f: f
+    kitti_eval._frame_rng = lambda f, dev: RansacDraws(
+        *(x.to(dev) for x in draws[f]))
+    try:
+        cpu = eval_vo_sequence(seq, cfg, OdometryConfig(), device="cpu",
+                               **VO_KW)
+    finally:
+        kitti_eval._frame_seed, kitti_eval._frame_rng = real
+    n = len(vo["poses"])
+    dR = np.abs(cpu["poses"][:, :3, :3] - vo["poses"][:, :3, :3]).reshape(
+        n, -1).max(1)
+    dt = np.abs(cpu["poses"][:, :3, 3] - vo["poses"][:, :3, 3]).max(1)
+    apart = (dR > POSE_BAR[0]) | (dt > POSE_BAR[1])
+    return dict(vo_metrics(cpu), max_dR=float(dR.max()),
+                max_dt_m=float(dt.max()),
+                first_frame_apart=(int(vo["frame_ids"][int(np.argmax(apart))])
+                                   if apart.any() else None))
 
 
 class Verifier:
@@ -327,15 +375,21 @@ def pose_graph_stages(seq, cfg, vo: dict, device, port: dict
     return pg, hd
 
 
-def record_stages(seq, cfg, device, port: dict) -> dict:
+def record_stages(seq, cfg, device, port: dict, replay: bool = True
+                  ) -> dict:
     """Stages 2-4b on the rendered sequence: the record's `depth`, `vo`,
     `pose_graph` and `pose_graph_high_drift` entries, in order; each
-    stage's seconds and launches go into port."""
+    stage's seconds and launches go into port.  With `replay`, a run on a
+    card also replays config 3's first run on the CPU (replay_on_cpu)."""
     rec = {"depth": _timed(port, "depth", depth_stage, seq, cfg, device,
                            port)}
     _stage("depth", rec["depth"])
     rec["vo"], runs = _timed(port, "vo", vo_stage, seq, cfg, device, port)
     _stage("vo", rec["vo"])
+    if replay and torch.device(device).type == "cuda":
+        port["reinit_on_cpu"] = _timed(port, "reinit_on_cpu", replay_on_cpu,
+                                       seq, cfg, runs["reinit"], device)
+        _stage("reinit_on_cpu", port["reinit_on_cpu"])
     rec["pose_graph"], rec["pose_graph_high_drift"] = pose_graph_stages(
         seq, cfg, runs["reinit"], device, port)
     _stage("pose_graph", rec["pose_graph"])
@@ -413,10 +467,11 @@ def demo_leg(device) -> dict:
 
 def run(frames: int = 220, device="cuda:0", commit: Optional[str] = None,
         sweep_frames: int = SWEEP_FRAMES, sweeps=SWEEPS,
-        ranks: Sequence[int] = SCALING_RANKS) -> dict:
+        ranks: Sequence[int] = SCALING_RANKS, replay: bool = True) -> dict:
     """All stages on `device`; returns the record.  `sweep_frames`,
     `sweeps` (record key, the sweep's arguments) and `ranks` size the
-    subprocess legs (the reference's by default)."""
+    subprocess legs (the reference's by default); `replay` as in
+    record_stages."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_parity_record_torch: no CUDA device; pass "
@@ -435,7 +490,7 @@ def run(frames: int = 220, device="cuda:0", commit: Optional[str] = None,
     port["seconds"]["render"] = time.perf_counter() - t0
     print("[2-4b/8] depth association, VO + window BA, pose-graph backend",
           flush=True)
-    rec.update(record_stages(seq, record_config(), dev, port))
+    rec.update(record_stages(seq, record_config(), dev, port, replay))
     if built is None and kernels.build_info.get("seconds") is not None:
         port["kernel_build_s"] = kernels.build_info["seconds"]
 
@@ -665,6 +720,18 @@ def render_md(rec: dict, tag: str) -> str:
                 port["legs"].get(stage) or {}).get("launches")
             lines.append(f"- {stage}: {s:.1f} s"
                          + (f", launches {json.dumps(n)}" if n else ""))
+        cpu = port.get("reinit_on_cpu")
+        if cpu:
+            lines.append(
+                f"- config 3's first reinit run again on the CPU from the "
+                f"card's RANSAC draws: ATE {cpu['ate_rmse_m']} m, RPE "
+                f"{cpu['rpe_trans_rmse_m']} m / {cpu['rpe_rot_rmse_deg']} "
+                f"deg; poses within {cpu['max_dt_m']:.2e} m and "
+                f"{cpu['max_dR']:.2e} of the card's, "
+                + ("never apart beyond chip_smoke.py phase 6's bar"
+                   if cpu["first_frame_apart"] is None else
+                   f"apart beyond chip_smoke.py phase 6's bar from frame "
+                   f"{cpu['first_frame_apart']}") + ".")
         lines.append("")
     return "\n".join(lines)
 

@@ -775,3 +775,20 @@ def test_persisted_landmarks_survive_chunks_and_resume(disk, monkeypatch,
                                init_carry=carry, **kw)
     stitched = np.concatenate([part1["poses"], part2["poses"]])
     assert np.array_equal(stitched, whole["poses"])
+
+
+def test_replay_on_cpu_of_a_cpu_run_is_the_run(disk):
+    """replay_on_cpu draws each frame's RANSAC sample as a run on the
+    given device draws it; given a CPU run, it reproduces that run to the
+    bit (on a card run it says where the two devices' trajectories
+    part)."""
+    _, tseq = disk
+    cfg = P.record_config()
+    vo = T.eval_vo_sequence(tseq, cfg, T.OdometryConfig(), device="cpu",
+                            **P.VO_KW)
+    out = P.replay_on_cpu(tseq, cfg, vo, "cpu")
+    assert out["max_dR"] == out["max_dt_m"] == 0.0
+    assert out["first_frame_apart"] is None
+    assert out == dict(P.vo_metrics(vo), max_dR=0.0, max_dt_m=0.0,
+                       first_frame_apart=None)
+    assert teval._frame_rng.__name__ == "_frame_rng"  # restored
