@@ -3507,6 +3507,29 @@ def phase_bench(card: str) -> dict:
     return {"gather_neighbors": gathers}
 
 
+def load_script(name: str):
+    """scripts/<name>.py as a module."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _script_ast(name: str):
+    import ast
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", f"{name}.py")
+    with open(path) as fh:
+        return ast.parse(fh.read())
+
+
 def endurance_py_keys() -> tuple[list, dict]:
     """The keys of scripts/endurance_run.py's record, read from its
     source: (the top-level keys in order, {top-level key: [each key list
@@ -3515,12 +3538,8 @@ def endurance_py_keys() -> tuple[list, dict]:
     dict with its f-string key taking the call's label, and the keys
     later set on those dicts."""
     import ast
-    import os
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "scripts", "endurance_run.py")
-    with open(path) as fh:
-        tree = ast.parse(fh.read())
+    tree = _script_ast("endurance_run")
     fns = {n.name: n for n in ast.walk(tree)
            if isinstance(n, ast.FunctionDef)}
     out = next(n.value for n in ast.walk(fns["run_backend"])
@@ -3585,11 +3604,6 @@ def endurance_py_keys() -> tuple[list, dict]:
     return top, nested
 
 
-def load_endurance():
-    """scripts/endurance_run_torch.py as a module."""
-    return load_script("endurance_run_torch")
-
-
 def check_endurance_keys(rec: dict) -> None:
     """The record's keys are the reference's (read from its source), plus
     `port`; each stage's keys are one of the reference's key lists."""
@@ -3613,7 +3627,7 @@ def phase_endurance(card: str) -> dict:
     from mono_lidar_depth_tpu_torch.obs.launches import kernel_launches
     from mono_lidar_depth_tpu_torch.tracker import klt
 
-    e = load_endurance()
+    e = load_script("endurance_run_torch")
     t0 = time.perf_counter()
     neighbors.launches = windows.launches = 0
     klt.launches = klt.gate_launches = 0
@@ -3668,29 +3682,6 @@ def phase_endurance(card: str) -> dict:
 
 
 # --------------------------------------------------------------- phase 12
-
-def load_script(name: str):
-    """scripts/<name>.py as a module."""
-    import importlib.util
-    import os
-
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "scripts", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(name, path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-def _script_ast(name: str):
-    import ast
-    import os
-
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "scripts", f"{name}.py")
-    with open(path) as fh:
-        return ast.parse(fh.read())
-
 
 def _printed_dict_keys(tree) -> list:
     """The keys of every `print(json.dumps({...}))` dict literal, in

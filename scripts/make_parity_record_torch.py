@@ -197,32 +197,24 @@ def vo_metrics(vo: dict) -> dict:
 
 def vo_stage(seq, cfg, device, port: dict) -> tuple[dict, dict]:
     """Config 3: landmarks re-initialized (three runs, every ATE kept) and
-    persisted.  Returns (the record's `vo` entry, the runs' dicts); the
-    re-initialized runs' largest pose difference from the first run, and
+    persisted.  Returns (the record's `vo` entry, the first re-initialized
+    run's dict); the other two runs' largest pose difference from it, and
     the first frame where they part, go into port["reinit_runs"]."""
-    vo_rec, runs, ates = {}, {}, []
-    poses = []
-    for run in range(3):
-        vo = eval_vo_sequence(seq, cfg, OdometryConfig(), device=device,
-                              **VO_KW)
-        ates.append(round(float(vo["ate_rmse"]), 3))
-        poses.append(vo["poses"])
-        if run == 0:
-            runs["reinit"] = vo
-            vo_rec["reinit"] = vo_metrics(vo)
-    vo_rec["reinit"]["ate_runs_m"] = ates
-    diffs = [np.abs(p - poses[0]).reshape(len(p), -1).max(1)
-             for p in poses[1:]]
+    runs = [eval_vo_sequence(seq, cfg, OdometryConfig(), device=device,
+                             **VO_KW) for _ in range(3)]
+    first = runs[0]
+    vo_rec = {"reinit": dict(vo_metrics(first), ate_runs_m=[
+        round(float(vo["ate_rmse"]), 3) for vo in runs])}
+    diffs = [np.abs(vo["poses"] - first["poses"]).reshape(
+        len(first["poses"]), -1).max(1) for vo in runs[1:]]
     port["reinit_runs"] = {
         "max_pose_diff": [float(d.max()) for d in diffs],
-        "first_frame_apart": [int(runs["reinit"]["frame_ids"][
-            int(np.argmax(d > 0))]) if (d > 0).any() else None
-            for d in diffs]}
-    vo = eval_vo_sequence(seq, cfg, OdometryConfig(persist_landmarks=True),
-                          device=device, **VO_KW)
-    runs["persist"] = vo
-    vo_rec["persist"] = vo_metrics(vo)
-    return vo_rec, runs
+        "first_frame_apart": [int(first["frame_ids"][int(np.argmax(d > 0))])
+                              if (d > 0).any() else None for d in diffs]}
+    vo_rec["persist"] = vo_metrics(eval_vo_sequence(
+        seq, cfg, OdometryConfig(persist_landmarks=True), device=device,
+        **VO_KW))
+    return vo_rec, first
 
 
 def card_draws(seq, cfg, device) -> list:
@@ -384,14 +376,14 @@ def record_stages(seq, cfg, device, port: dict, replay: bool = True
     rec = {"depth": _timed(port, "depth", depth_stage, seq, cfg, device,
                            port)}
     _stage("depth", rec["depth"])
-    rec["vo"], runs = _timed(port, "vo", vo_stage, seq, cfg, device, port)
+    rec["vo"], reinit = _timed(port, "vo", vo_stage, seq, cfg, device, port)
     _stage("vo", rec["vo"])
     if replay and torch.device(device).type == "cuda":
         port["reinit_on_cpu"] = _timed(port, "reinit_on_cpu", replay_on_cpu,
-                                       seq, cfg, runs["reinit"], device)
+                                       seq, cfg, reinit, device)
         _stage("reinit_on_cpu", port["reinit_on_cpu"])
     rec["pose_graph"], rec["pose_graph_high_drift"] = pose_graph_stages(
-        seq, cfg, runs["reinit"], device, port)
+        seq, cfg, reinit, device, port)
     _stage("pose_graph", rec["pose_graph"])
     _stage("pose_graph_high_drift", rec["pose_graph_high_drift"])
     return rec

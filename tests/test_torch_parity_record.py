@@ -354,7 +354,7 @@ def test_flags_are_the_references():
 # ---- the record's keys and its markdown ------------------------------------
 
 def _record(tmp_path, monkeypatch):
-    """main() on 6 frames on the CPU with its subprocess legs stubbed."""
+    """main() on 4 frames on the CPU with its subprocess legs stubbed."""
     sweep = [json.loads(ln) for ln in (
         '{"lidar_rows": 20, "max_range": null, "road_texture": 1.0, '
         '"far_veto": true, "success_all": 0.4, "success_covered": 0.66, '
@@ -372,7 +372,7 @@ def _record(tmp_path, monkeypatch):
         '{"multihost_processes": 2, "global_devices": 2, '
         '"distributed_final_cost": 1.0, "single_process_final_cost": 1.0, '
         '"match": true}']})
-    assert P.main(["--device", "cpu", "--frames", "6", "--tag", "cpu_small",
+    assert P.main(["--device", "cpu", "--frames", "4", "--tag", "cpu_small",
                    "--out", str(tmp_path), "--commit", "abc1234"]) == 0
     return json.loads((tmp_path / "PARITY_cpu_small.json").read_text())
 
@@ -387,7 +387,7 @@ def written(tmp_path_factory):
 def test_main_writes_the_record(written):
     tmp, rec = written
     chip_smoke.check_parity_keys(rec)
-    assert rec["frames"] == 6 and rec["backend"] == "cpu"
+    assert rec["frames"] == 4 and rec["backend"] == "cpu"
     assert rec["commit"] == rec["port"]["commit"] == "abc1234"
     port = rec["port"]
     assert port["torch"] == torch.__version__ and port["card"].startswith(
