@@ -1,7 +1,7 @@
 """Launch counts of the port's hand-written kernels, by the kernels'
 names.  Each kernel wrapper adds one to its module's counter where it
 launches its kernel (on a card only: the plain versions on the CPU count
-nothing); a driver reads them around a stage."""
+nothing); a script reads them around each of its stages."""
 
 from __future__ import annotations
 

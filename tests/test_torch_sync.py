@@ -234,7 +234,7 @@ def test_update_tracks_seed_length(T_slots, M):
     # eval_vo_sequence
     ("../scripts/endurance_run_torch.py", ["__call__", "inject_drift"]),
     # the evaluation record's twin: its counted verification of a pair
-    # and the drift injection; its frames run inside the eval drivers
+    # and the drift injection; its frames run inside the sequence evaluators
     ("../scripts/make_parity_record_torch.py", ["__call__", "inject_drift"]),
     # the launch counters the twins read around each stage
     ("obs/launches.py", ["kernel_launches", "launches_since"]),
