@@ -231,8 +231,10 @@ ENDURANCE_CHECKPOINT = 128  # phase 11 checkpoints here and resumes
 # Phase 12: scripts/make_parity_record_torch.run at make_parity_record.py's
 # --quick size; its sweep at PARITY_SWEEP (frames, lidar rows), veto on and
 # off; its scaling table at PARITY_RANKS; then road_veto_off, production
-# and persisted landmarks card against CPU over PARITY_AGREE_FRAMES frames
-# at phase 7's code bar and phase 6's pose bar (|dR|, |dt| m).
+# and persisted landmarks card against CPU over PARITY_AGREE_FRAMES frames,
+# and config 3 one step at a time over its PARITY_FRAMES frames (each frame
+# on the CPU from the card's carry), at phase 7's code bar and phase 6's
+# pose bar (|dR|, |dt| m).
 PARITY_FRAMES = 60
 PARITY_SWEEP = (24, 20)
 PARITY_RANKS = (1, 2)
@@ -3862,6 +3864,40 @@ def parity_card_vs_cpu(P, seq, card: str) -> None:
               f"{name}: card/CPU poses differ: |dR| {dR:.2e}, |dt| {dt:.2e}")
 
 
+def parity_steps_card_vs_cpu(P, card: str) -> None:
+    """Config 3 on the card over PARITY_FRAMES frames of the record's
+    sequence, then every frame once on the CPU from the card's carry after
+    the frame before and with the card's RANSAC draws
+    (make_parity_record_torch.replay_steps_on_cpu): counts equal on every
+    frame, poses within PARITY_POSE_BAR, codes at PARITY_CODE_BAR, the
+    carry's integer leaves equal to the bit, and the frame-by-frame card
+    run equal to the uninterrupted one."""
+    seq = P.render_sequence(P.record_spec(PARITY_FRAMES))
+    cfg = P.record_config()
+    t0 = time.perf_counter()
+    vo = P.eval_vo_sequence(seq, cfg, P.OdometryConfig(), device="cuda",
+                            **P.VO_KW)
+    s = P.replay_steps_on_cpu(seq, cfg, vo, "cuda")
+    log(f"phase 12 parity: config 3 one step at a time, card vs CPU from "
+        f"the card's carry, {s['frames']} frames "
+        f"({time.perf_counter() - t0:.1f} s): largest |dR| {s['max_dR']:.2e}"
+        f" (frame {s['max_dR_frame']}), |dt| {s['max_dt_m']:.2e} m (frame "
+        f"{s['max_dt_frame']}); counts differ at {s['count_frames']}; codes "
+        f"agree {s['codes_agree']:.5f}, differ at {s['code_frames']}, first "
+        f"{s['first_frame']}; integer leaves apart {s['int_apart']}; "
+        f"frame-by-frame run equal to the run {s['equals_run']} [{card}]")
+    check(s["equals_run"], "config 3 frame by frame on the card is not the "
+          "uninterrupted run")
+    check(not s["int_apart"], f"one-step integer leaves: {s['int_apart']}")
+    check(not s["count_frames"],
+          f"one-step counts differ at frames {s['count_frames']}")
+    check(s["max_dR"] <= PARITY_POSE_BAR[0]
+          and s["max_dt_m"] <= PARITY_POSE_BAR[1],
+          f"one-step poses: |dR| {s['max_dR']:.2e}, |dt| {s['max_dt_m']:.2e}")
+    check(s["codes_agree"] >= PARITY_CODE_BAR,
+          f"one-step codes agree {s['codes_agree']:.5f} < {PARITY_CODE_BAR}")
+
+
 def phase_parity(card: str) -> dict:
     """scripts/make_parity_record_torch.run on the card: stages 2-4b in
     process at PARITY_FRAMES frames (make_parity_record.py's --quick
@@ -3962,6 +3998,7 @@ def phase_parity(card: str) -> dict:
     # card against the CPU on the rows this slice drives first on the card
     seq = P.render_sequence(P.record_spec(PARITY_AGREE_FRAMES + 1))
     parity_card_vs_cpu(P, seq, card)
+    parity_steps_card_vs_cpu(P, card)
     for key in ("density_sweep", "density_sweep_veto_off", "scaling"):
         for k, v in legs[key]["launches"].items():
             total[k] += v

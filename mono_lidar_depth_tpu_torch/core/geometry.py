@@ -80,8 +80,8 @@ class PinholeCamera(NamedTuple):
     def viewing_rays(self, uv: torch.Tensor) -> torch.Tensor:
         """Unit viewing-ray directions through pixels uv [..., 2]."""
         f = self.focal_length
-        x = (uv[..., 0] - self.cx) / f
-        y = (uv[..., 1] - self.cy) / f
+        x = _div(uv[..., 0] - self.cx, f)
+        y = _div(uv[..., 1] - self.cy, f)
         d = torch.stack([x, y, torch.ones_like(x)], dim=-1)
         return d / norm3(d)[..., None]
 

@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from .geometry import _div
+
 
 class HistogramSegmentation(NamedTuple):
     seg_mask: torch.Tensor  # [N, K] points inside the selected bin
@@ -49,7 +51,7 @@ def filter_points_min_dist_blob(
 
     d = torch.clamp(depths, max=999.0)
     # |d| / w >= 0, so clamping at B before the cast is exact.
-    bins = torch.clamp(torch.clamp(torch.abs(d) / bin_width, max=float(B))
+    bins = torch.clamp(torch.clamp(_div(torch.abs(d), bin_width), max=float(B))
                        .to(torch.int32), 0, B - 1)
     bins_m = torch.where(mask, bins, B)  # invalid -> sentinel B, sorts last
     sb = torch.sort(bins_m, dim=1).values

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..config import DepthEstimatorConfig
+from ..core.geometry import _div
 from ..device import Device, default_device
 from ..io.kitti import pad_cloud
 from ..obs.stats import DepthCalcStats, format_stats_report, success_rates
@@ -98,8 +99,9 @@ def _load_payload(seq, cfg: DepthEstimatorConfig, f: int, xyzi, count,
 
 
 def _dev_img(img: torch.Tensor) -> torch.Tensor:
-    """uint8 [H, W] -> [0, 1] f32, on device (see _load_payload)."""
-    return img.to(torch.float32) / 255.0
+    """uint8 [H, W] -> [0, 1] f32, on device (see _load_payload), divided
+    truly on every device (`geometry._div`)."""
+    return _div(img.to(torch.float32), 255.0)
 
 
 def _prefetch_iter(gen, depth: int = 1):

@@ -31,7 +31,7 @@ from typing import NamedTuple
 import torch
 
 from ..collectives import all_reduce_sum
-from ..core.geometry import PinholeCamera
+from ..core.geometry import PinholeCamera, _div
 from .lie import se3_exp
 
 
@@ -166,7 +166,7 @@ def ba_iteration(camera: PinholeCamera, pb: BAProblem, huber_px: float,
     # Relative (Marquardt) damping bounds each 3x3 block's condition.
     obs_cnt = w.sum(0) + w_d.sum(0)
     lm_free = (obs_cnt > 0) & pb.lm_valid
-    tr_l = (Hll[0, 0] + Hll[1, 1] + Hll[2, 2]) / 3.0
+    tr_l = _div(Hll[0, 0] + Hll[1, 1] + Hll[2, 2], 3.0)
     lam = damping * torch.clamp(tr_l, min=1.0) + 1e-8
     eye3 = torch.eye(3, device=dev)[:, :, None]
     Hll = torch.where(lm_free[None, None, :], Hll + lam * eye3, eye3)
@@ -181,7 +181,7 @@ def ba_iteration(camera: PinholeCamera, pb: BAProblem, huber_px: float,
         Hpp, S_cross, bp, b_red_lm = all_reduce_sum(group, Hpp, S_cross, bp,
                                                     b_red_lm)
 
-    tr_p = torch.diagonal(Hpp, dim1=-2, dim2=-1).sum(-1) / 6.0
+    tr_p = _div(torch.diagonal(Hpp, dim1=-2, dim2=-1).sum(-1), 6.0)
     eye6 = torch.eye(6, device=dev)
     Hpp = Hpp + (damping * torch.clamp(tr_p, min=1.0))[:, None, None] * eye6
     kk = torch.arange(K, device=dev)

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.geometry import norm3
+from ..core.geometry import _div, norm3
 
 _SMALL = 1e-10
 
@@ -39,8 +39,8 @@ def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     """Rodrigues: [..., 3] axis-angle -> [..., 3, 3] rotation."""
     th2, th2_safe, theta, small = _theta_terms(phi)
     K = hat(phi)
-    a = torch.where(small, 1.0 - th2 / 6.0, torch.sin(theta) / theta)
-    b = torch.where(small, 0.5 - th2 / 24.0,
+    a = torch.where(small, 1.0 - _div(th2, 6.0), torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - _div(th2, 24.0),
                     (1.0 - torch.cos(theta)) / th2_safe)
     return _eye_like(K) + a * K + b * (K @ K)
 
@@ -56,7 +56,7 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     w = torch.stack([R[..., 2, 1] - R[..., 1, 2],
                      R[..., 0, 2] - R[..., 2, 0],
                      R[..., 1, 0] - R[..., 0, 1]], dim=-1)
-    scale = torch.where(small, 0.5 + (1.0 - cos) / 6.0,
+    scale = torch.where(small, 0.5 + _div(1.0 - cos, 6.0),
                         theta_int / (2.0 * sin_int))
     out = scale[..., None] * w
 
@@ -89,9 +89,9 @@ def _V(phi: torch.Tensor) -> torch.Tensor:
     """Left Jacobian of SO(3)."""
     th2, th2_safe, theta, small = _theta_terms(phi)
     K = hat(phi)
-    b = torch.where(small, 0.5 - th2 / 24.0,
+    b = torch.where(small, 0.5 - _div(th2, 24.0),
                     (1.0 - torch.cos(theta)) / th2_safe)
-    c = torch.where(small, 1.0 / 6.0 - th2 / 120.0,
+    c = torch.where(small, 1.0 / 6.0 - _div(th2, 120.0),
                     (theta - torch.sin(theta)) / (th2_safe * theta))
     return _eye_like(K) + b * K + c * (K @ K)
 
@@ -102,7 +102,7 @@ def _V_inv(phi: torch.Tensor) -> torch.Tensor:
     half = theta * 0.5
     sin_half = torch.where(small, 1.0, torch.sin(half))
     cot_term = (1.0 - half * torch.cos(half) / sin_half) / th2_safe
-    coef = torch.where(small, 1.0 / 12.0 + th2 / 720.0, cot_term)
+    coef = torch.where(small, 1.0 / 12.0 + _div(th2, 720.0), cot_term)
     return _eye_like(K) - 0.5 * K + coef * (K @ K)
 
 

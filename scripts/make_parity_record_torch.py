@@ -48,8 +48,9 @@ Where it departs from the reference:
     seconds, the verification calls of configs 4 and 4b, the three
     re-initialized runs' largest pose difference, the subprocesses' own
     `port` lines, and on a card config 3's first run replayed on the CPU
-    from the card's RANSAC draws (`replay_on_cpu`): where the card's
-    trajectory parts from the CPU's.
+    from the card's RANSAC draws, as a whole (`replay_on_cpu`: where the
+    card's trajectory parts from the CPU's) and one frame at a time from
+    the card's carry (`replay_steps_on_cpu`: where a single step parts).
   * A subprocess leg that fails records {"error": ...} (the demo: ok
     false), as the reference does when one raises.
 """
@@ -57,6 +58,7 @@ Where it departs from the reference:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -73,6 +75,8 @@ sys.path.insert(0, str(REPO))
 
 import bench_torch  # noqa: E402  (the repo root is on the path now)
 from mono_lidar_depth_tpu_torch import DepthEstimatorConfig, kernels  # noqa: E402
+from mono_lidar_depth_tpu_torch.convert import (  # noqa: E402
+    state_from_numpy, state_to_numpy)
 from mono_lidar_depth_tpu_torch.core.ransac import (  # noqa: E402
     RansacDraws, draw_ransac)
 from mono_lidar_depth_tpu_torch.eval import kitti_eval  # noqa: E402
@@ -86,6 +90,8 @@ from mono_lidar_depth_tpu_torch.io.synthetic_dataset import (  # noqa: E402
     SyntheticSpec, render_sequence)
 from mono_lidar_depth_tpu_torch.obs.launches import (  # noqa: E402
     kernel_launches, launches_since)
+from mono_lidar_depth_tpu_torch.tracks import (  # noqa: E402
+    pipeline as tracks_pipeline)
 from mono_lidar_depth_tpu_torch.vo.metrics import ate_rmse  # noqa: E402
 from mono_lidar_depth_tpu_torch.vo.pipeline import OdometryConfig  # noqa: E402
 
@@ -231,21 +237,29 @@ def card_draws(seq, cfg, device) -> list:
     return out
 
 
-def replay_on_cpu(seq, cfg, vo: dict, device) -> dict:
-    """Config 3's first re-initialized run (`vo`, made on `device`) again
-    on the CPU from the same RANSAC draws: the CPU's ATE and RPE, how far
-    its poses lie from `vo`'s, and the first frame where they part by
-    more than POSE_BAR (None: never)."""
-    draws = card_draws(seq, cfg, device)
+@contextlib.contextmanager
+def given_draws(draws: list):
+    """While open, the sequence evaluators take frame f's RANSAC sample
+    from `draws[f]` (moved to the frame's device) instead of seeding a
+    generator."""
     real = kitti_eval._frame_seed, kitti_eval._frame_rng
     kitti_eval._frame_seed = lambda seed, f: f
     kitti_eval._frame_rng = lambda f, dev: RansacDraws(
         *(x.to(dev) for x in draws[f]))
     try:
-        cpu = eval_vo_sequence(seq, cfg, OdometryConfig(), device="cpu",
-                               **VO_KW)
+        yield
     finally:
         kitti_eval._frame_seed, kitti_eval._frame_rng = real
+
+
+def replay_on_cpu(seq, cfg, vo: dict, device) -> dict:
+    """Config 3's first re-initialized run (`vo`, made on `device`) again
+    on the CPU from the same RANSAC draws: the CPU's ATE and RPE, how far
+    its poses lie from `vo`'s, and the first frame where they part by
+    more than POSE_BAR (None: never)."""
+    with given_draws(card_draws(seq, cfg, device)):
+        cpu = eval_vo_sequence(seq, cfg, OdometryConfig(), device="cpu",
+                               **VO_KW)
     n = len(vo["poses"])
     dR = np.abs(cpu["poses"][:, :3, :3] - vo["poses"][:, :3, :3]).reshape(
         n, -1).max(1)
@@ -255,6 +269,168 @@ def replay_on_cpu(seq, cfg, vo: dict, device) -> dict:
                 max_dt_m=float(dt.max()),
                 first_frame_apart=(int(vo["frame_ids"][int(np.argmax(apart))])
                                    if apart.any() else None))
+
+
+@contextlib.contextmanager
+def outcomes_recorded():
+    """While open, the depths and codes that every `process_frame`
+    computes for the previous and the current frame
+    (`estimate_depths_pair`) are appended to the yielded list, moved to
+    the CPU, as numpy (depths [2M], codes [2M]): lanes 0..M-1 the previous
+    frame's, M..2M-1 the current frame's."""
+    outcomes, real = [], tracks_pipeline.estimate_depths_pair
+
+    def estimate_depths_pair(*args, **kwargs):
+        prev, new = real(*args, **kwargs)
+        outcomes.append(tuple(torch.cat([a, b]).cpu().numpy() for a, b in (
+            (prev.depths, new.depths), (prev.codes, new.codes))))
+        return prev, new
+
+    tracks_pipeline.estimate_depths_pair = estimate_depths_pair
+    try:
+        yield outcomes
+    finally:
+        tracks_pipeline.estimate_depths_pair = real
+
+
+@contextlib.contextmanager
+def steps_recorded():
+    """While open, `eval_vo_sequence` runs one frame per chunk and keeps
+    what each step leaves: the yielded dict's `carries[f]` is the carry
+    after frame f (carries[0]: after the prime), moved to the CPU, and
+    `outcomes[f - 1]` frame f's (depths, codes)."""
+    carries, real = [], kitti_eval._scan_vo_chunk
+    real_chunk = kitti_eval._CHUNK_FRAMES
+
+    def scan_vo_chunk(*args):
+        carry, outs = real(*args)
+        carries.append(state_from_numpy(state_to_numpy(carry), "cpu"))
+        return carry, outs
+
+    kitti_eval._scan_vo_chunk, kitti_eval._CHUNK_FRAMES = scan_vo_chunk, 1
+    try:
+        with outcomes_recorded() as outcomes:
+            yield {"carries": carries, "outcomes": outcomes}
+    finally:
+        kitti_eval._scan_vo_chunk, kitti_eval._CHUNK_FRAMES = real, real_chunk
+
+
+def one_step(seq, cfg, f: int, carry, device) -> dict:
+    """Frame f alone on `device`, from `carry` (the carry after frame
+    f - 1): `eval_vo_sequence` resumed at f for one frame, its carry
+    kept."""
+    return eval_vo_sequence(seq, cfg, OdometryConfig(), max_frames=f + 1,
+                            start_frame=f, init_carry=carry,
+                            return_carry=True, device=device, **VO_KW)
+
+
+def _leaves(tree, path: str = ""):
+    """(path, tensor) of every tensor of a carry, in field order."""
+    if isinstance(tree, torch.Tensor):
+        yield path, tree
+    elif hasattr(tree, "_fields"):
+        for name in tree._fields:
+            yield from _leaves(getattr(tree, name), f"{path}.{name}")
+    elif isinstance(tree, (tuple, list)):
+        for i, x in enumerate(tree):
+            yield from _leaves(x, f"{path}[{i}]")
+
+
+def carry_gap(got, want) -> tuple[list, dict]:
+    """Two carries of one layout: (the integer and boolean leaves that are
+    not equal to the bit, other than the outcome counters, which move
+    with the codes; the largest absolute difference of each float leaf)."""
+    apart, floats = [], {}
+    for (path, a), (_, b) in zip(_leaves(got), _leaves(want)):
+        a, b = a.cpu(), b.cpu()
+        if a.is_floating_point():
+            d = (a.double() - b.double()).abs()
+            d = d[torch.isfinite(d)]
+            floats[path] = float(d.max()) if d.numel() else 0.0
+        elif path != "[1].tracklets.counters" and not torch.equal(a, b):
+            apart.append(path)
+    return apart, floats
+
+
+def step_gap(step: dict, codes, pose: np.ndarray, diag: np.ndarray,
+             ref_codes, ref_carry) -> dict:
+    """One replayed frame (`step`: one_step's dict, `codes` its depth
+    codes) against the reference's own step of that frame (its world <-
+    camera pose, diag, codes, carry after the frame): rotation and
+    translation gaps, whether the motion-track and inlier counts agree,
+    the lanes whose codes differ ([lane, reference code, replayed code],
+    numbered as outcomes_recorded numbers them) and carry_gap.
+    `ref_codes` None: the reference keeps no codes."""
+    apart, floats = carry_gap(step["carry"], ref_carry)
+    lanes = ([] if ref_codes is None else
+             [[int(i), int(ref_codes[i]), int(codes[i])]
+              for i in np.nonzero(ref_codes != codes)[0]])
+    return {"dR": float(np.abs(step["poses"][0, :3, :3] - pose[:3, :3]).max()),
+            "dt_m": float(np.abs(step["poses"][0, :3, 3] - pose[:3, 3]).max()),
+            "counts_equal": bool(np.array_equal(step["diag"][0, :2],
+                                                diag[:2])),
+            "lanes": lanes, "n_lanes": len(codes), "int_apart": apart,
+            "floats": floats}
+
+
+def summarize_steps(rows: dict) -> dict:
+    """Frame -> step_gap rows, summed up: the largest rotation and
+    translation gaps and their frames, the frames beyond POSE_BAR, whose
+    counts differ, whose codes differ, whose integer leaves differ, the
+    first frame whose counts differ (else whose codes differ) with its
+    lanes, the share of lane outcomes that agree, and each float leaf's
+    largest difference."""
+    def worst(key):
+        f = max(rows, key=lambda k: rows[k][key])
+        return rows[f][key], f
+
+    (dR, fR), (dt, ft) = worst("dR"), worst("dt_m")
+    count_frames = [f for f, r in rows.items() if not r["counts_equal"]]
+    code_frames = [f for f, r in rows.items() if r["lanes"]]
+    first = (count_frames or code_frames or [None])[0]
+    floats: dict = {}
+    for r in rows.values():
+        for k, v in r["floats"].items():
+            floats[k] = max(floats.get(k, 0.0), v)
+    return {
+        "frames": len(rows), "max_dR": dR, "max_dR_frame": fR,
+        "max_dt_m": dt, "max_dt_frame": ft,
+        "pose_frames": [f for f, r in rows.items()
+                        if r["dR"] > POSE_BAR[0] or r["dt_m"] > POSE_BAR[1]],
+        "count_frames": count_frames, "code_frames": code_frames,
+        "first_frame": None if first is None else {
+            "frame": first, "counts_equal": rows[first]["counts_equal"],
+            "lanes": rows[first]["lanes"]},
+        "codes_agree": 1.0 - sum(len(r["lanes"]) for r in rows.values())
+        / max(sum(r["n_lanes"] for r in rows.values()), 1),
+        "int_apart": {f: r["int_apart"] for f, r in rows.items()
+                      if r["int_apart"]},
+        "float_leaves_max": floats}
+
+
+def replay_steps_on_cpu(seq, cfg, vo: dict, device) -> dict:
+    """Config 3's first re-initialized run (`vo`, made on `device`) step
+    by step: the run again on `device` with one frame per chunk, keeping
+    the carry after every frame (moved to the CPU) and every frame's
+    codes; then every frame f once on the CPU, from the device's carry
+    after f - 1 and with the device's RANSAC draws, held against the
+    device's own step (step_gap, summed up by summarize_steps).
+    `equals_run`: the frame-by-frame run's poses equal `vo`'s to the
+    bit."""
+    draws = card_draws(seq, cfg, device)
+    with steps_recorded() as rec:
+        run = eval_vo_sequence(seq, cfg, OdometryConfig(), device=device,
+                               **VO_KW)
+    rows = {}
+    with given_draws(draws):
+        for k, f in enumerate(run["frame_ids"]):
+            with outcomes_recorded() as outcomes:
+                step = one_step(seq, cfg, f, rec["carries"][f - 1], "cpu")
+            rows[f] = step_gap(step, outcomes[0][1], run["poses"][k],
+                               run["diag"][k], rec["outcomes"][k][1],
+                               rec["carries"][f])
+    return dict(summarize_steps(rows), equals_run=bool(
+        np.array_equal(run["poses"], vo["poses"])))
 
 
 class Verifier:
@@ -382,6 +558,10 @@ def record_stages(seq, cfg, device, port: dict, replay: bool = True
         port["reinit_on_cpu"] = _timed(port, "reinit_on_cpu", replay_on_cpu,
                                        seq, cfg, reinit, device)
         _stage("reinit_on_cpu", port["reinit_on_cpu"])
+        port["reinit_steps_on_cpu"] = _timed(
+            port, "reinit_steps_on_cpu", replay_steps_on_cpu, seq, cfg,
+            reinit, device)
+        _stage("reinit_steps_on_cpu", port["reinit_steps_on_cpu"])
     rec["pose_graph"], rec["pose_graph_high_drift"] = pose_graph_stages(
         seq, cfg, reinit, device, port)
     _stage("pose_graph", rec["pose_graph"])
@@ -724,6 +904,27 @@ def render_md(rec: dict, tag: str) -> str:
                    if cpu["first_frame_apart"] is None else
                    f"apart beyond chip_smoke.py phase 6's bar from frame "
                    f"{cpu['first_frame_apart']}") + ".")
+        steps = port.get("reinit_steps_on_cpu")
+        if steps:
+            first = steps["first_frame"]
+            lines.append(
+                f"- the same run one step at a time, each of its "
+                f"{steps['frames']} frames once on the CPU from the card's "
+                f"carry after the frame before and with the card's draws: "
+                f"largest |dR| {steps['max_dR']:.2e} (frame "
+                f"{steps['max_dR_frame']}), |dt| {steps['max_dt_m']:.2e} m "
+                f"(frame {steps['max_dt_frame']}); beyond chip_smoke.py "
+                f"phase 6's bar at frames {steps['pose_frames'] or 'none'}; "
+                f"counts differ at frames {steps['count_frames'] or 'none'}; "
+                f"codes agree {steps['codes_agree']:.5f}"
+                + ("" if first is None else
+                   f", first apart at frame {first['frame']} (lanes [lane, "
+                   f"card code, CPU code]: {first['lanes']})")
+                + f"; integer leaves apart "
+                f"{steps['int_apart'] or 'at no frame'}; the frame-by-frame "
+                f"card run "
+                f"{'equals' if steps['equals_run'] else 'differs from'} the "
+                f"run.")
         lines.append("")
     return "\n".join(lines)
 

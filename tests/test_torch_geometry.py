@@ -212,10 +212,12 @@ def test_eigensolver_divides_truly(monkeypatch, lane, turn_deg):
 
 
 def test_div_is_the_cpus_division():
-    """On the CPU `_div` gives the bits of `/` by a Python number."""
+    """On the CPU `_div` gives the bits of `/` by a Python number: the
+    eigensolver's, BA's and the Lie series' divisors, the image's 255, a
+    focal length and the histogram's bin width among them."""
     rng = np.random.default_rng(0)
     x = torch.from_numpy((rng.normal(size=100_000) * 10.0 ** rng.uniform(
         -8, 8, 100_000)).astype(np.float32))
-    for c in (3.0, 6.0, 7.0, 0.1):
+    for c in (3.0, 6.0, 7.0, 0.1, 24.0, 120.0, 720.0, 255.0, 240.0, 0.3):
         assert torch.equal(tg._div(x, c).view(torch.int32),
                            (x / c).view(torch.int32)), c

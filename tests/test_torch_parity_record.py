@@ -792,3 +792,29 @@ def test_replay_on_cpu_of_a_cpu_run_is_the_run(disk):
     assert out == dict(P.vo_metrics(vo), max_dR=0.0, max_dt_m=0.0,
                        first_frame_apart=None)
     assert teval._frame_rng.__name__ == "_frame_rng"  # restored
+
+
+def test_replay_steps_on_cpu_of_a_cpu_run_is_the_run(disk):
+    """replay_steps_on_cpu runs config 3 again one frame per chunk,
+    keeping every carry, and steps each frame once on the CPU from the
+    carry before it; given a CPU run, every step is the run's own to the
+    bit: no pose gap, no frame apart, every lane's code and every leaf
+    equal, the frame-by-frame run equal to the run; the evaluators' names
+    are restored."""
+    _, tseq = disk
+    cfg = P.record_config()
+    vo = T.eval_vo_sequence(tseq, cfg, T.OdometryConfig(), device="cpu",
+                            **P.VO_KW)
+    out = P.replay_steps_on_cpu(tseq, cfg, vo, "cpu")
+    assert out["frames"] == FRAMES - 1 and out["equals_run"]
+    assert out["max_dR"] == out["max_dt_m"] == 0.0
+    assert out["pose_frames"] == out["count_frames"] == [] == (
+        out["code_frames"])
+    assert out["first_frame"] is None and out["int_apart"] == {}
+    assert out["codes_agree"] == 1.0
+    assert set(out["float_leaves_max"].values()) == {0.0}
+    assert teval._CHUNK_FRAMES == 256
+    assert teval._scan_vo_chunk.__name__ == "_scan_vo_chunk"
+    assert teval._frame_rng.__name__ == "_frame_rng"
+    assert P.tracks_pipeline.estimate_depths_pair.__name__ == (
+        "estimate_depths_pair")
