@@ -110,10 +110,12 @@ def rasterize_cloud(
 
 
 def plane_to_camera(lidar_to_cam: SE3, coeffs: torch.Tensor) -> torch.Tensor:
-    """Lidar-frame plane [a, b, c, d] -> camera frame."""
-    n_c = (lidar_to_cam.rotation @ coeffs[:3, None])[:, 0]
-    d_c = coeffs[3] - dot3(n_c, lidar_to_cam.translation)
-    return torch.cat([n_c, d_c[None]])
+    """Lidar-frame plane [a, b, c, d] -> camera frame, in float64 and
+    rounded once (the rule of `geometry.f32`)."""
+    c = coeffs.double()
+    n_c = dot3(lidar_to_cam.rotation.double(), c[:3])
+    d_c = c[3] - dot3(n_c, lidar_to_cam.translation.double())
+    return torch.cat([n_c, d_c[None]]).to(coeffs.dtype)
 
 
 def _gather_two_scales(cfg, camera, frames, uvs):

@@ -13,6 +13,7 @@ them bit-exact.  No LAPACK or cuSOLVER call is reachable from here: the
 from __future__ import annotations
 
 import math
+import struct
 from typing import NamedTuple
 
 import torch
@@ -49,6 +50,37 @@ def _div(x: torch.Tensor, c: float) -> torch.Tensor:
     one ulp off the quotient; a 0-dim divisor on x's device is divided
     by, as the CPU divides by either."""
     return x / x.new_full((), c)
+
+
+def f32(t: float) -> float:
+    """t rounded to the nearest float32, as a Python float.
+
+    The depth association's fits and rankings (`core/ransac.py`,
+    `core/planefit.py`, `depth_estimator.plane_to_camera`) run in float64
+    from their float32 inputs and round to float32 once, at their output.
+    A float32 x float32 product is exact in float64, a sum of three terms
+    is written out left to right (`dot3`) and a longer sum is taken in an
+    order that its terms fix (`sum_sorted`), so the card and the CPU
+    compute the same float64 fit, and land on the same float32 result.
+    A threshold is compared in float64 with f32(t), the value the JAX
+    package's float32 comparison uses."""
+    return struct.unpack("f", struct.pack("f", t))[0]
+
+
+def sum_sorted(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in an order that the values alone fix: the
+    terms ascending, then added pairwise in halves.  Every device and
+    every order of the terms give the same bits, which the closed-form
+    eigensolver needs: on a window whose two smallest eigenvalues nearly
+    coincide it turns a rounding of its input into an error of about
+    eps * kappa**2 in the normal (kappa = ev2 / (ev1 - ev0))."""
+    x = torch.sort(x, dim=-1).values
+    n = x.shape[-1]
+    x = torch.nn.functional.pad(x, (0, (1 << (n - 1).bit_length()) - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
 
 
 class PinholeCamera(NamedTuple):

@@ -1,11 +1,14 @@
 """Batched RANSAC ground plane (counterpart of core/ransac.py).
 
 S pre-drawn 3-point hypotheses are scored at once: residuals over the
-subsample are one [S_sub, S] fp32 matmul, the best hypothesis is the
-argmax inlier count, and an LS refit refines it.  The random draws come
-from a `torch.Generator`; `jax.random` streams cannot be reproduced in
-PyTorch, so callers (the parity tests) may inject the subsample indices
-and the hypothesis picks instead.
+subsample are one [S_sub, S] float64 product, the best hypothesis is
+the argmax inlier count, and an LS refit refines it.  The residuals, the
+refit and the semantic plane's projection and distances run in float64
+from the float32 points, sum in the order of `geometry.sum_sorted` and
+round to float32 once, at the coefficients (the rule of `geometry.f32`).
+The random draws come from a `torch.Generator`; `jax.random` streams
+cannot be reproduced in PyTorch, so callers (the parity tests) may
+inject the subsample indices and the hypothesis picks instead.
 
 `fit_ground_plane_semantic` takes the ground from a semantic label image
 instead: no random draws.
@@ -18,7 +21,9 @@ from typing import NamedTuple
 
 import torch
 
-from .geometry import cross3, dot3, norm3, smallest_eigenvector_sym3x3
+from .geometry import (cross3, dot3, f32, norm3, smallest_eigenvector_sym3x3,
+                       sum_sorted)
+from .planefit import _scatter3, _wsum
 
 
 class GroundPlane(NamedTuple):
@@ -50,12 +55,20 @@ def draw_ransac(valid: torch.Tensor, generator: torch.Generator,
 
 
 def _ls_plane(points: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Weighted LS plane through weighted points -> coeffs [4]."""
-    wsum = w.sum()
-    c = (points * w[:, None]).sum(0) / torch.where(wsum == 0, 1.0, wsum)
-    centered = (points - c) * torch.sqrt(w)[:, None]
-    n = smallest_eigenvector_sym3x3(centered.T @ centered)
-    return torch.cat([n, -dot3(n, c)[None]])
+    """Weighted LS plane through weighted points -> coeffs [4], fitted
+    in float64 and rounded to the points' float32."""
+    p, w = points.double(), w.double()
+    wsum = sum_sorted(w)
+    c = _wsum(w, p) / torch.where(wsum == 0, 1.0, wsum)
+    centered = (p - c) * torch.sqrt(w)[:, None]
+    n = smallest_eigenvector_sym3x3(_scatter3(centered[None])[0])
+    return torch.cat([n, -dot3(n, c)[None]]).to(points.dtype)
+
+
+def _plane_dist(points: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
+    """|n·p + d| in float64 for points [..., 3] and coeffs [4]."""
+    c = coeffs.double()
+    return torch.abs(dot3(points.double(), c[:3]) + c[3])
 
 
 def fit_ground_plane_ransac(
@@ -108,9 +121,9 @@ def fit_ground_plane_ransac(
     cos_eps = math.cos(math.radians(axis_max_angle_deg))
     hyp_ok = tri_ok & (torch.abs(n_unit[:, 2]) >= cos_eps) & (n_norm >= 1e-12)
 
-    # Plain fp32 product (TF32 is off, see precision.py).
-    res = torch.abs(sub_pts @ n_unit.T + d[None, :])  # [S_sub, S]
-    inl = (res < distance_threshold) & sub_ok[:, None]
+    res = torch.abs(dot3(sub_pts.double()[:, None], n_unit.double()[None])
+                    + d.double()[None, :])  # [S_sub, S]
+    inl = (res < f32(distance_threshold)) & sub_ok[:, None]
     counts = torch.where(hyp_ok, inl.sum(0), -1)
     # `index_select` on a 1-element index: indexing with the 0-dim `best`
     # itself would read it back to the host.
@@ -127,8 +140,8 @@ def fit_ground_plane_ransac(
     if use_refinement:
         refined = _ls_plane(sub_pts, best_inl_sub.to(torch.float32))
         if inliers_from_full_cloud:
-            dist_full = torch.abs(pts @ refined[:3] + refined[3])
-            inlier_mask = zmask & (dist_full < refinement_threshold)
+            dist_full = _plane_dist(pts, refined)
+            inlier_mask = zmask & (dist_full < f32(refinement_threshold))
         else:
             # Reference: within refinement distance of the UNrefined
             # model, over the subsample only.
@@ -177,8 +190,11 @@ def fit_ground_plane_semantic(
     those.  As the JAX package, points behind the camera are left out."""
     H, W = semantic_image.shape
     pts = points_lidar.to(torch.float32)
-    p_cam = pts @ lidar_to_cam_rotation.T + lidar_to_cam_translation
-    proj = p_cam @ intrinsics.T
+    p64 = pts.double()
+    R, t, K = (x.double() for x in (lidar_to_cam_rotation,
+                                    lidar_to_cam_translation, intrinsics))
+    p_cam = torch.stack([dot3(p64, R[i]) + t[i] for i in range(3)], -1)
+    proj = torch.stack([dot3(p_cam, K[i]) for i in range(3)], -1)
     z = proj[:, 2]
     safe_z = torch.where(z == 0, 1.0, z)
     u = proj[:, 0] / safe_z
@@ -193,8 +209,7 @@ def fit_ground_plane_semantic(
     seed = valid & in_img & on_ground
 
     coeffs0 = _ls_plane(pts, seed.to(torch.float32))
-    dist = torch.abs(pts @ coeffs0[:3] + coeffs0[3])
-    refined_mask = valid & (dist < inlier_threshold)
+    refined_mask = valid & (_plane_dist(pts, coeffs0) < f32(inlier_threshold))
     coeffs = _ls_plane(pts, refined_mask.to(torch.float32))
     return GroundPlane(coeffs=_orient_up(coeffs), inlier_mask=refined_mask,
                        ok=seed.sum() >= 3)

@@ -35,6 +35,7 @@ import torch
 
 from ..config import DepthEstimatorConfig
 from ..core.depth_estimator import estimate_depths
+from ..core.geometry import _div
 from ..core.ransac import RansacDraws, fit_ground_plane_ransac
 from ..device import Device, default_device
 from ..io.kitti import KittiSequence, pad_cloud
@@ -1094,8 +1095,8 @@ def _closure_pose_device(cfg, cam, lidar_to_cam, img_s, img_t,
     pyramids -> KLT -> ground plane -> depths -> pose GN, on uint8 images
     [H, W], a padded cloud and RANSAC randomness `rng` (a generator or
     RansacDraws).  No host read: the result stays on the device."""
-    js = img_s.to(torch.float32) / 255.0
-    jt = img_t.to(torch.float32) / 255.0
+    js = _div(img_s.to(torch.float32), 255.0)
+    jt = _div(img_t.to(torch.float32), 255.0)
     uv_s, ok = detect_features(js, max_features, cell_size=8)
     ps = build_pyramid(js, 4)
     pt = build_pyramid(jt, 4)

@@ -55,6 +55,7 @@ from typing import NamedTuple
 import torch
 
 from ..collectives import all_reduce_sum
+from ..core.geometry import _div
 from .lie import se3_exp, se3_log
 from .linalg6 import inv6_spd
 
@@ -301,7 +302,7 @@ def _chain_blocks(g: PoseGraph, lin: _Linearization, group=None):
     eye6 = torch.eye(6, dtype=g.t.dtype, device=g.t.device)
     # The relative floor shapes only the preconditioner; the raw damping
     # would underflow the f32 3x3 adjugate determinants.
-    diag_scale = torch.diagonal(D, dim1=1, dim2=2).sum(-1).mean() / 6.0
+    diag_scale = _div(torch.diagonal(D, dim1=1, dim2=2).sum(-1).mean(), 6.0)
     floor = 1e-3 * diag_scale + 1e-6
     D = torch.where(g.fixed[:, None, None], eye6, D + floor * eye6)
     return D, B

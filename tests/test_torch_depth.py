@@ -18,8 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (CAMERA, R_LC, SMALL, T_LC, assert_trees_equal,
-                          jax_ransac_draws, to_numpy, to_port)
+from torch_parity import (CAMERA, R_LC, SMALL, T_LC, aligned,
+                          assert_on_f64_fit, assert_trees_equal,
+                          f64_plane_fit, fit_bound, jax_ransac_draws,
+                          to_numpy, to_port)
 import mono_lidar_depth_tpu as J
 from mono_lidar_depth_tpu.core import depth_estimator as JDE
 import mono_lidar_depth_tpu_torch as T
@@ -27,6 +29,7 @@ from mono_lidar_depth_tpu.core.histogram import (
     filter_points_min_dist_blob as jax_blob)
 from mono_lidar_depth_tpu.io.kitti import make_synthetic_scan, pad_cloud
 from mono_lidar_depth_tpu_torch.convert import state_to_numpy
+from mono_lidar_depth_tpu_torch.core import ransac as tr
 from mono_lidar_depth_tpu_torch.core.histogram import (
     filter_points_min_dist_blob as torch_blob)
 
@@ -294,19 +297,40 @@ def test_unported_configurations_raise():
     {"inliers_from_full_cloud": True},
     {"min_z": -1.0, "max_z": 3.0, "distance_threshold": 0.2},
 ])
-def test_ransac_options(options):
+def test_ransac_options(options, monkeypatch):
+    """Inliers and ok as JAX's.  Without refinement the coefficients are
+    the best hypothesis's, within 1e-5 of JAX's.  The refit runs in
+    float64 (core/geometry.py `f32`): its plane within fit_bound of
+    LAPACK's float64 fit of the same inliers, and within |JAX - float64|
+    + fit_bound of JAX's float32 fit (options2: JAX's offset 1.6e-5 from
+    the port's)."""
     cloud, valid, _, _ = _scene(7)
     key = jax.random.PRNGKey(7)
     jgp = to_numpy(J.fit_ground_plane_ransac(
         jnp.asarray(cloud), jnp.asarray(valid), key, num_hypotheses=N_HYP,
         subsample=S_SUB, **options))
     sub_idx, picks = jax_ransac_draws(key, valid, S_SUB, N_HYP)
+    refits, real = [], tr._ls_plane
+    monkeypatch.setattr(tr, "_ls_plane", lambda p, w: refits.append(
+        (p.numpy(), w.numpy())) or real(p, w))
     tgp = state_to_numpy(T.fit_ground_plane_ransac(
         torch.from_numpy(cloud), torch.from_numpy(valid), sub_idx=sub_idx,
         picks=picks, num_hypotheses=N_HYP, subsample=S_SUB, **options))
     assert np.array_equal(tgp.inlier_mask, jgp.inlier_mask)
     assert bool(tgp.ok) == bool(jgp.ok)
-    np.testing.assert_allclose(tgp.coeffs, jgp.coeffs, atol=1e-5)
+    if not refits:
+        np.testing.assert_allclose(tgp.coeffs, jgp.coeffs, atol=1e-5)
+        return
+    n64, c64, kappa = f64_plane_fit(*refits[0])
+    n64 = aligned(n64, tgp.coeffs[:3])
+    jerr, _ = assert_on_f64_fit(tgp.coeffs[:3], jgp.coeffs[:3], n64, kappa,
+                                np.bool_(True))
+    d64 = -float(n64 @ c64)
+    d_bound = fit_bound(kappa) * np.abs(c64).sum() + 2 * np.spacing(
+        np.float32(d64))
+    assert abs(tgp.coeffs[3] - d64) <= d_bound
+    assert abs(tgp.coeffs[3] - jgp.coeffs[3]) <= abs(
+        jgp.coeffs[3] - d64) + d_bound
 
 
 def test_debug_record_and_frame_entry_points():

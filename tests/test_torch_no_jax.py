@@ -36,7 +36,8 @@ SCRIPTS = ["chip_smoke.py", "profile_step.py", "gate_variants.py",
            "__graft_entry_torch__.py", "bench_torch.py",
            "scripts/endurance_run_torch.py", "scripts/exp_success_rate_torch.py",
            "scripts/bench_scaling_torch.py", "scripts/multihost_demo_torch.py",
-           "scripts/make_parity_record_torch.py"]
+           "scripts/make_parity_record_torch.py",
+           "scripts/step_split_torch.py", "scripts/card_draws_torch.py"]
 
 
 def _port_modules():

@@ -115,3 +115,55 @@ class OnCard:
 
     def is_contiguous(self):
         return self._contiguous
+
+
+# The port's fits run in float64 and round once (core/geometry.py `f32`).
+# Against LAPACK's float64 fit of the same formula their normals lie
+# within FIT_ULP float32 ulp of 1, or, on windows whose two smallest
+# eigenvalues nearly coincide, within the closed form's own float64 error
+# EPS64 * kappa**2 (kappa = ev2 / (ev1 - ev0); tests/test_torch_fit_order.py
+# measures 0.29 of it).
+EPS64 = float(np.finfo(np.float64).eps)
+FIT_ULP = 2.0 * 2.0 ** -24
+
+
+def f64_plane_fit(points, weights):
+    """LAPACK's float64 fit of the port's plane formula (weighted
+    centroid, smallest eigenvector of the weighted scatter) on its
+    float32 inputs: points [..., K, 3], weights [..., K] -> (normal
+    [..., 3], center [..., 3], kappa [...])."""
+    p = np.asarray(points, np.float64)
+    w = np.asarray(weights, np.float64)
+    ws = w.sum(-1)
+    c = (w[..., None] * p).sum(-2) / np.where(ws == 0, 1.0, ws)[..., None]
+    q = (p - c[..., None, :]) * np.sqrt(w)[..., None]
+    ev, vec = np.linalg.eigh(np.einsum("...ki,...kj->...ij", q, q))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        kappa = ev[..., 2] / (ev[..., 1] - ev[..., 0])
+    return vec[..., 0], c, kappa
+
+
+def fit_bound(kappa):
+    """How far a port normal may lie from f64_plane_fit's, per component."""
+    return np.maximum(FIT_ULP, EPS64 * np.nan_to_num(kappa, nan=np.inf,
+                                                      posinf=np.inf) ** 2)
+
+
+def aligned(normal, like):
+    """normal [..., 3] with its sign turned to `like`'s side."""
+    s = np.where((np.asarray(normal) * like).sum(-1) < 0, -1.0, 1.0)
+    return np.asarray(normal, np.float64) * s[..., None]
+
+
+def assert_on_f64_fit(port, jax_, want, kappa, ok):
+    """The port's normals [..., 3] within fit_bound of the float64 fit
+    `want`, and within |JAX - float64| + fit_bound of JAX's, on the lanes
+    `ok`.  Returns the largest |JAX - float64| and |port - float64|."""
+    bound = fit_bound(kappa)[ok]
+    t = np.abs(aligned(port, want) - want).max(-1)[ok]
+    j = np.abs(aligned(jax_, want) - want).max(-1)[ok]
+    tj = np.abs(aligned(port, want) - aligned(jax_, want)).max(-1)[ok]
+    assert (t <= bound).all(), (t / bound).max()
+    assert (tj <= j + bound).all()
+    return (float(j.max()) if j.size else 0.0,
+            float(t.max()) if t.size else 0.0)
