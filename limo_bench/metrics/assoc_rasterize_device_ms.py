@@ -1,0 +1,16 @@
+"""Device ms per profiled frame of the activities that the launch calls
+inside the port's span `assoc.rasterize` enqueued:
+`core/depth_estimator.rasterize_cloud` in `process_frame`."""
+
+from ..program_spans import device_ms
+
+NAME = "assoc.rasterize.device_ms"
+UNIT = "ms"
+LAYER = "association"
+MOVES = "frames_per_s"
+SOURCE = "device_trace"
+SPANS = []
+
+
+def read(r):
+    return device_ms(r, "assoc.rasterize")

@@ -18,6 +18,7 @@ import torch
 from ..config import DepthEstimatorConfig
 from ..device import Device, default_device
 from ..obs.stats import count_codes
+from ..obs.timing import span
 from .geometry import (SE3, PinholeCamera, dot3, plane_from_points,
                        point_plane_distance, ray_plane_intersection)
 from .histogram import filter_points_min_dist_blob, nearest_point
@@ -223,24 +224,26 @@ def _depth_cascade(
 
     enough1 = nb1.count >= cfg.radiusSearch_count_min
 
-    if cfg.do_use_histogram_segmentation:
-        hist = filter_points_min_dist_blob(
-            nb1.z, nb1.mask, cfg.histogram_segmentation_bin_witdh,
-            cfg.histogram_segmentation_min_pointcount, cfg.histogram_bins)
-        seg_mask, hist_found = hist.seg_mask, hist.found
-    else:  # DepthEstimator.cpp:762-764: use all neighbors
-        seg_mask = nb1.mask
-        hist_found = torch.ones(N, dtype=torch.bool, device=dev)
+    with span("depth.segment"):
+        if cfg.do_use_histogram_segmentation:
+            hist = filter_points_min_dist_blob(
+                nb1.z, nb1.mask, cfg.histogram_segmentation_bin_witdh,
+                cfg.histogram_segmentation_min_pointcount,
+                cfg.histogram_bins)
+            seg_mask, hist_found = hist.seg_mask, hist.found
+        else:  # DepthEstimator.cpp:762-764: use all neighbors
+            seg_mask = nb1.mask
+            hist_found = torch.ones(N, dtype=torch.bool, device=dev)
 
-    depth_p, code_p, corners_p = _segment_depth(
-        cfg, nb1.points_cam, seg_mask, ray_dir, ray_origin,
-        check_planar_enabled=cfg.do_check_triangleplanar_condition)
-    code_p = torch.where(hist_found, code_p, int(R.HistogramNoLocalMax))
-    code_p = torch.where(enough1, code_p,
-                         int(R.RadiusSearchInsufficientPoints))
+        depth_p, code_p, corners_p = _segment_depth(
+            cfg, nb1.points_cam, seg_mask, ray_dir, ray_origin,
+            check_planar_enabled=cfg.do_check_triangleplanar_condition)
+        code_p = torch.where(hist_found, code_p, int(R.HistogramNoLocalMax))
+        code_p = torch.where(enough1, code_p,
+                             int(R.RadiusSearchInsufficientPoints))
 
-    primary_success = code_p == int(R.Success)
-    depth_primary = torch.where(primary_success, depth_p, -1.0)
+        primary_success = code_p == int(R.Success)
+        depth_primary = torch.where(primary_success, depth_p, -1.0)
 
     # ---- region growing (DepthEstimator.cpp:513-558): the seed is the
     # minimum-depth window neighbor; no seed and a seed beyond the global
@@ -288,9 +291,10 @@ def _depth_cascade(
                            | no_seed | too_deep)
 
     if cfg.do_use_ransac_plane:
-        code_f, depth_f, road_count = _road_pass(
-            cfg, nb2, ray_origin, ray_dir, gp_coeffs_cam, gp_ok,
-            code_p, depth_primary, enough1, primary_success)
+        with span("depth.road"):
+            code_f, depth_f, road_count = _road_pass(
+                cfg, nb2, ray_origin, ray_dir, gp_coeffs_cam, gp_ok,
+                code_p, depth_primary, enough1, primary_success)
     else:
         code_f, depth_f = code_p, depth_primary
         road_count = torch.zeros(N, dtype=torch.int64, device=dev)

@@ -25,6 +25,7 @@ from ..core.ransac import (GroundPlane, RansacDraws, fit_ground_plane_ransac,
                            fit_ground_plane_semantic)
 from ..core.result_types import NUM_RESULT_TYPES
 from ..device import Device, default_device
+from ..obs.timing import span
 from .table import TrackTable, match_tracks, update_tracks
 
 # RANSAC randomness of one frame: a generator on the cloud's device, or
@@ -150,23 +151,32 @@ def process_frame(
     state: TrackletDepthState,
     frame: FrameInput,
 ) -> tuple[TrackletDepthState, torch.Tensor, torch.Tensor]:
-    """Process one frame; returns (state', depths_new [M], codes_new [M])."""
-    gp = _frame_ground_plane(cfg, camera, lidar_to_cam, frame.cloud,
-                             frame.cloud_valid, frame.rng, frame.semantic)
-    slot_exist, is_new = match_tracks(state.table, frame.ids, frame.ids_valid)
-    frame_cur = rasterize_cloud(cfg, camera, lidar_to_cam, frame.cloud,
-                                frame.cloud_valid, gp)
-    est_prev, est_new = estimate_depths_pair(
-        cfg, camera, lidar_to_cam,
-        state.frame_last, frame.uv_prev, is_new, state.gp_last,
-        frame_cur, frame.uv_new, frame.ids_valid, gp)
-    table, _ = update_tracks(
-        state.table, frame.ids, frame.ids_valid, frame.uv_new,
-        frame.uv_prev, est_new.depths, est_prev.depths, frame.stamp,
-        match=(slot_exist, is_new))
-    new_state = TrackletDepthState(
-        table=table, frame_last=frame_cur, gp_last=gp,
-        counters=state.counters + est_new.counters + est_prev.counters)
+    """Process one frame; returns (state', depths_new [M], codes_new [M]).
+    Each stage runs in a span of `obs.timing` (`assoc.frame` the root)."""
+    with span("assoc.frame", frame=True):
+        with span("assoc.ground_plane"):
+            gp = _frame_ground_plane(cfg, camera, lidar_to_cam, frame.cloud,
+                                     frame.cloud_valid, frame.rng,
+                                     frame.semantic)
+        with span("assoc.match_tracks"):
+            slot_exist, is_new = match_tracks(state.table, frame.ids,
+                                              frame.ids_valid)
+        with span("assoc.rasterize"):
+            frame_cur = rasterize_cloud(cfg, camera, lidar_to_cam,
+                                        frame.cloud, frame.cloud_valid, gp)
+        with span("assoc.depth_pair"):
+            est_prev, est_new = estimate_depths_pair(
+                cfg, camera, lidar_to_cam,
+                state.frame_last, frame.uv_prev, is_new, state.gp_last,
+                frame_cur, frame.uv_new, frame.ids_valid, gp)
+        with span("assoc.update_tracks"):
+            table, _ = update_tracks(
+                state.table, frame.ids, frame.ids_valid, frame.uv_new,
+                frame.uv_prev, est_new.depths, est_prev.depths, frame.stamp,
+                match=(slot_exist, is_new))
+        new_state = TrackletDepthState(
+            table=table, frame_last=frame_cur, gp_last=gp,
+            counters=state.counters + est_new.counters + est_prev.counters)
     return new_state, est_new.depths, est_new.codes
 
 

@@ -25,8 +25,14 @@ defaults at the KITTI size, bench.py's synthetic clouds and tracks) for
     time and the device time of the kernels it launched.
 
 The idle share is 1 - busy / step median, against the unprofiled median.
-Stages are labelled by wrapping the functions the step calls (in
-tracks/pipeline.py and vo/pipeline.py) for the profiled steps only.
+The depth association's stages are the port's own spans
+(`obs/timing.span`: `assoc.ground_plane`, `assoc.match_tracks`,
+`assoc.rasterize`, `assoc.depth_pair` with `depth.segment` and
+`depth.road` inside it, `assoc.update_tracks`), which open a profiler range
+while a profiler records, read by name; a tree older than those spans
+shows no association rows.  The other stages are labelled by wrapping the
+functions the step calls (in vo/pipeline.py and the modules below) for the
+profiled steps only.
 
 Then the image path: 12 frames of the synthetic sequence at the KITTI
 size (chip_smoke.py's phase 6 settings) are rendered and moved to the
@@ -41,8 +47,8 @@ scans in Velodyne order (io/synthetic_dataset.VelodyneOrder) and the tracker's
 outputs made beforehand: `odometry_step` with the defaults and then with
 `do_use_depth_segmentation=True` (stages `segment_rows`, `grow_regions`,
 the two `estimate_depths_from_frame` passes), and `process_frame` with
-the RANSAC plane and then with the semantic plane (stage
-`fit_ground_plane_semantic`), each with the same plan, so that the device
+the RANSAC plane and then with the semantic plane (the plane's fit in the
+span `assoc.ground_plane`), each with the same plan, so that the device
 time and the activities that a configuration adds can be read off.
 
 Last the loop-closure backend: `closure_constraint_from_frames` on the
@@ -68,24 +74,26 @@ WARM, TIMED, PROFILED = 4, 4, 3
 # The pose graph at KITTI-00 scale: one GN iteration per call, fewer calls
 # (a call launches ~400,000 kernels).
 PG_PLAN = (1, 2, 1)
-# (module, function, label): the stages of one odometry step.
-STAGES = [("tracks", "_ground_plane", "ransac"),
-          ("tracks", "rasterize_cloud", "rasterize"),
-          ("tracks", "match_tracks", "match_tracks"),
-          ("tracks", "estimate_depths_pair", "depth_pair"),
-          ("tracks", "update_tracks", "update_tracks"),
-          ("vo", "estimate_pose_gn", "pose_gn"),
+# The port's own spans in `process_frame` (obs/timing.span), read by name
+# in every stage table.
+PORT_STAGES = ["assoc.ground_plane", "assoc.match_tracks", "assoc.rasterize",
+               "assoc.depth_pair", "depth.segment", "depth.road",
+               "assoc.update_tracks"]
+# (module, function, label): the stages of one odometry step that the port
+# has no span for.
+STAGES = [("vo", "estimate_pose_gn", "pose_gn"),
           ("vo", "run_ba", "window_ba")]
 
 
 # What the optional configurations add to the stages of a step.
 OPTION_STAGES = STAGES + [
-    ("tracks", "fit_ground_plane_semantic", "fit_ground_plane_semantic"),
     ("depth", "estimate_depths_from_frame", "depths_from_frame"),
     ("depth", "segment_rows", "segment_rows"),
     ("depth", "grow_regions", "grow_regions")]
-# Stages that run inside `depth_pair`: shown, not added to the stages' sum.
-NESTED = {"depths_from_frame", "segment_rows", "grow_regions"}
+# Stages that run inside `assoc.depth_pair`: shown, not added to the
+# stages' sum.
+NESTED = {"depth.segment", "depth.road", "depths_from_frame", "segment_rows",
+          "grow_regions"}
 
 # The stages of one GN iteration of `optimize_pose_graph`
 # (vo/pose_graph.py): the factorization scan and the scans' products are
@@ -196,11 +204,12 @@ def profile_calls(what: str, call, stages, card: str,
           f"unprofiled median {1 - busy / median:.3f} [{card}]")
     print("stage | calls/call | host ms/call | device ms/call")
     staged = 0.0
-    for _, _, label in stages:
+    for label in PORT_STAGES + [label for *_, label in stages]:
         row = next((e for e in rows if e.key == label
                     and e.device_type == torch.autograd.DeviceType.CPU), None)
         if row is None:
-            print(f"{label} | 0 | - | -")
+            if label not in PORT_STAGES:  # a port span: not on this path
+                print(f"{label} | 0 | - | -")
             continue
         dev_ms = row.device_time_total / 1e3 / PROFILED
         if label in NESTED:
