@@ -1852,6 +1852,7 @@ def phase_sequence(card: str, seq) -> dict:
     from mono_lidar_depth_tpu_torch.io.kitti import KittiSequence, pad_cloud
     from mono_lidar_depth_tpu_torch.io.synthetic_dataset import VelodyneOrder
     from mono_lidar_depth_tpu_torch.tracker import klt
+    from mono_lidar_depth_tpu_torch.tracks import pipeline as tracks_pipeline
     from mono_lidar_depth_tpu_torch.tracks.pipeline import (
         _frame_ground_plane, _ground_plane)
 
@@ -2177,9 +2178,11 @@ def phase_sequence(card: str, seq) -> dict:
             for k, f in enumerate(inputs, 1):
                 frame = T.FrameInput(*(on(x) for x in f[:7]), rng=rd(k),
                                      semantic=on(f.semantic))
+                # the eager body: a replay of process_frame's CUDA graphs
+                # calls none of the functions that the margins wrap
                 with _GateMargins() as gates:
-                    _, dep, cod = T.process_frame(c_, cam, l2c_d,
-                                                  state.tracklets, frame)
+                    _, dep, cod = tracks_pipeline._process_frame_eager(
+                        c_, cam, l2c_d, state.tracklets, frame)
                 margins.append(gates.of_new_frame(N))
                 state, R_cw, t_cw, _ = T.odometry_step(c_, ocfg, cam, l2c_d,
                                                        state, frame)

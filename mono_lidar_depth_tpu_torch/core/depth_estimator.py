@@ -55,7 +55,7 @@ def no_ground_plane(max_points: int, device: Device = default_device()
                     ) -> GroundPlane:
     """Placeholder plane (ok == False disables the road pass)."""
     return GroundPlane(
-        coeffs=torch.tensor([0.0, 0.0, 1.0, 0.0], device=device),
+        coeffs=(torch.arange(4, device=device) == 2).to(torch.float32),
         inlier_mask=torch.zeros(max_points, dtype=torch.bool, device=device),
         ok=torch.zeros((), dtype=torch.bool, device=device))
 
@@ -168,9 +168,10 @@ def estimate_depths_pair(
     gp_b: GroundPlane,
 ) -> tuple[DepthEstimate, DepthEstimate]:
     """Two feature sets against two frames in one fused cascade: one
-    gather over both frames and both scales (one kernel launch), then
-    everything downstream once over the [Na + Nb] lanes.  Region growing
-    is frame-local (the row segmentation of each cloud), so in that
+    gather over both frames and both scales (one kernel launch,
+    `depth_pair_gather`), then everything downstream once over the
+    [Na + Nb] lanes (`depth_pair_cascade`).  Region growing is
+    frame-local (the row segmentation of each cloud), so in that
     configuration the two frames run as two separate passes: two
     launches."""
     if cfg.set_all_depths_to_zero:
@@ -180,10 +181,42 @@ def estimate_depths_pair(
                                            frame_a, uv_a, valid_a, gp_a),
                 estimate_depths_from_frame(cfg, camera, lidar_to_cam,
                                            frame_b, uv_b, valid_b, gp_b))
+    nbs = depth_pair_gather(cfg, camera, frame_a, uv_a, frame_b, uv_b)
+    return depth_pair_cascade(cfg, camera, lidar_to_cam, nbs, uv_a, valid_a,
+                              gp_a, uv_b, valid_b, gp_b)
 
+
+def depth_pair_gather(
+    cfg: DepthEstimatorConfig,
+    camera: PinholeCamera,
+    frame_a: FrameCloud,
+    uv_a: torch.Tensor,
+    frame_b: FrameCloud,
+    uv_b: torch.Tensor,
+) -> tuple[NeighborSet, Optional[NeighborSet]]:
+    """The gather half of the fused `estimate_depths_pair`: both scales'
+    neighbor sets over the lanes of `uv_a` in `frame_a` then `uv_b` in
+    `frame_b` (the road scale's None when the road pass is off)."""
+    return _gather_two_scales(cfg, camera, [frame_a, frame_b], [uv_a, uv_b])
+
+
+def depth_pair_cascade(
+    cfg: DepthEstimatorConfig,
+    camera: PinholeCamera,
+    lidar_to_cam: SE3,
+    nbs: tuple[NeighborSet, Optional[NeighborSet]],
+    uv_a: torch.Tensor,
+    valid_a: torch.Tensor,
+    gp_a: GroundPlane,
+    uv_b: torch.Tensor,
+    valid_b: torch.Tensor,
+    gp_b: GroundPlane,
+) -> tuple[DepthEstimate, DepthEstimate]:
+    """The cascade half of the fused `estimate_depths_pair`, on the
+    neighbor sets of `depth_pair_gather`; reads each plane's `coeffs` and
+    `ok`."""
+    nb1, nb2 = nbs
     Na, Nb = uv_a.shape[0], uv_b.shape[0]
-    nb1, nb2 = _gather_two_scales(cfg, camera, [frame_a, frame_b],
-                                  [uv_a, uv_b])
     uv = torch.cat([uv_a, uv_b])
     valid = torch.cat([valid_a, valid_b])
     coeffs = torch.cat([

@@ -6,7 +6,10 @@ matching, the fused two-frame depth estimator (previous-frame features
 of new tracks against the cached last frame, newest features against
 the current frame), and the track-table update.  State is an explicit
 NamedTuple passed in and returned.  A frame that carries a semantic label
-image takes its ground plane from the road classes instead of RANSAC.
+image takes its ground plane from the road classes instead of RANSAC.  On
+a card `process_frame` replays the frame as two CUDA graphs around the
+gather (`frame_graph.py`); `_process_frame_eager` is the same frame op by
+op.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from ..core.ransac import (GroundPlane, RansacDraws, fit_ground_plane_ransac,
 from ..core.result_types import NUM_RESULT_TYPES
 from ..device import Device, default_device
 from ..obs.timing import span
+from .frame_graph import FrameGraphs
 from .table import TrackTable, match_tracks, update_tracks
 
 # RANSAC randomness of one frame: a generator on the cloud's device, or
@@ -144,6 +148,66 @@ def prime_state(cfg: DepthEstimatorConfig, camera: PinholeCamera,
     return state._replace(frame_last=frame, gp_last=gp)
 
 
+def _front(cfg: DepthEstimatorConfig, camera: PinholeCamera,
+           lidar_to_cam: SE3, table: TrackTable, frame: FrameInput):
+    """The stages before the neighbor gather: (ground plane, (slot, is_new)
+    of `match_tracks`, the rasterized current frame)."""
+    with span("assoc.ground_plane"):
+        gp = _frame_ground_plane(cfg, camera, lidar_to_cam, frame.cloud,
+                                 frame.cloud_valid, frame.rng,
+                                 frame.semantic)
+    with span("assoc.match_tracks"):
+        match = match_tracks(table, frame.ids, frame.ids_valid)
+    with span("assoc.rasterize"):
+        frame_cur = rasterize_cloud(cfg, camera, lidar_to_cam, frame.cloud,
+                                    frame.cloud_valid, gp)
+    return gp, match, frame_cur
+
+
+def _back(state: TrackletDepthState, frame: FrameInput, front,
+          est_prev, est_new
+          ) -> tuple[TrackletDepthState, torch.Tensor, torch.Tensor]:
+    """The stages after the depth pair: the table update and the
+    counters; returns `process_frame`'s result."""
+    gp, match, frame_cur = front
+    with span("assoc.update_tracks"):
+        table, _ = update_tracks(
+            state.table, frame.ids, frame.ids_valid, frame.uv_new,
+            frame.uv_prev, est_new.depths, est_prev.depths, frame.stamp,
+            match=match)
+    new_state = TrackletDepthState(
+        table=table, frame_last=frame_cur, gp_last=gp,
+        counters=state.counters + est_new.counters + est_prev.counters)
+    return new_state, est_new.depths, est_new.codes
+
+
+def _process_frame_eager(
+    cfg: DepthEstimatorConfig,
+    camera: PinholeCamera,
+    lidar_to_cam: SE3,
+    state: TrackletDepthState,
+    frame: FrameInput,
+    depth_pair=None,
+) -> tuple[TrackletDepthState, torch.Tensor, torch.Tensor]:
+    """`process_frame` op by op on the host: each stage in a span of
+    `obs.timing` (`assoc.frame` the root).  `depth_pair` takes
+    `estimate_depths_pair`'s arguments and result (the graphs' warm-up
+    passes one that keeps the gather's outputs); by default the module's
+    `estimate_depths_pair`, looked up per call."""
+    with span("assoc.frame", frame=True):
+        front = _front(cfg, camera, lidar_to_cam, state.table, frame)
+        gp, (_, is_new), frame_cur = front
+        with span("assoc.depth_pair"):
+            est_prev, est_new = (depth_pair or estimate_depths_pair)(
+                cfg, camera, lidar_to_cam,
+                state.frame_last, frame.uv_prev, is_new, state.gp_last,
+                frame_cur, frame.uv_new, frame.ids_valid, gp)
+        return _back(state, frame, front, est_prev, est_new)
+
+
+_GRAPHS = FrameGraphs(_process_frame_eager, _front, _back)
+
+
 def process_frame(
     cfg: DepthEstimatorConfig,
     camera: PinholeCamera,
@@ -152,32 +216,30 @@ def process_frame(
     frame: FrameInput,
 ) -> tuple[TrackletDepthState, torch.Tensor, torch.Tensor]:
     """Process one frame; returns (state', depths_new [M], codes_new [M]).
-    Each stage runs in a span of `obs.timing` (`assoc.frame` the root)."""
-    with span("assoc.frame", frame=True):
-        with span("assoc.ground_plane"):
-            gp = _frame_ground_plane(cfg, camera, lidar_to_cam, frame.cloud,
-                                     frame.cloud_valid, frame.rng,
-                                     frame.semantic)
-        with span("assoc.match_tracks"):
-            slot_exist, is_new = match_tracks(state.table, frame.ids,
-                                              frame.ids_valid)
-        with span("assoc.rasterize"):
-            frame_cur = rasterize_cloud(cfg, camera, lidar_to_cam,
-                                        frame.cloud, frame.cloud_valid, gp)
-        with span("assoc.depth_pair"):
-            est_prev, est_new = estimate_depths_pair(
-                cfg, camera, lidar_to_cam,
-                state.frame_last, frame.uv_prev, is_new, state.gp_last,
-                frame_cur, frame.uv_new, frame.ids_valid, gp)
-        with span("assoc.update_tracks"):
-            table, _ = update_tracks(
-                state.table, frame.ids, frame.ids_valid, frame.uv_new,
-                frame.uv_prev, est_new.depths, est_prev.depths, frame.stamp,
-                match=(slot_exist, is_new))
-        new_state = TrackletDepthState(
-            table=table, frame_last=frame_cur, gp_last=gp,
-            counters=state.counters + est_new.counters + est_prev.counters)
-    return new_state, est_new.depths, est_new.codes
+
+    Functional: neither `state` nor `frame` is changed, and nothing that
+    is returned changes when a later frame runs.
+
+    On a card the frame replays two CUDA graphs (`tracks/frame_graph.py`):
+    graph A (ground plane, track matching, rasterization), then one eager
+    launch of the neighbor gather, then graph B (the depth cascade, the
+    table update, the counters).  They hold the eager body's kernels in
+    its order and are captured once per input signature: the device,
+    `cfg`, `camera`, whether `semantic` is given, the kind of `rng`, the
+    shape and dtype of every tensor, and the TF32, matmul-precision and
+    determinism switches in force.  A frame replays when every
+    tensor is on the current CUDA device, no stream capture is running,
+    the depth pair is the fused one (`do_use_depth_segmentation` and
+    `set_all_depths_to_zero` off) and, where RANSAC runs (no `semantic`),
+    its draws are pre-drawn `(sub_idx, picks)`: a generator is not
+    replayed.  Every other frame, CPU tensors included, and the first
+    frame of each signature run `_process_frame_eager`, the same stages op
+    by op, each in a span of `obs.timing` (`assoc.frame` the root); a
+    replayed frame enters only `assoc.frame` and `assoc.replay`."""
+    graph = _GRAPHS.get(cfg, camera, lidar_to_cam, state, frame)
+    if graph is None:
+        return _process_frame_eager(cfg, camera, lidar_to_cam, state, frame)
+    return graph(lidar_to_cam, state, frame)
 
 
 def process_sequence(cfg: DepthEstimatorConfig, camera: PinholeCamera,

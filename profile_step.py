@@ -30,9 +30,11 @@ The depth association's stages are the port's own spans
 `assoc.rasterize`, `assoc.depth_pair` with `depth.segment` and
 `depth.road` inside it, `assoc.update_tracks`), which open a profiler range
 while a profiler records, read by name; a tree older than those spans
-shows no association rows.  The other stages are labelled by wrapping the
-functions the step calls (in vo/pipeline.py and the modules below) for the
-profiled steps only.
+shows no association rows.  A replay of `process_frame`'s CUDA graphs
+enters no stage span, so the script runs the frame's eager body
+(`tracks/pipeline._process_frame_eager`) and says so.  The other stages
+are labelled by wrapping the functions the step calls (in vo/pipeline.py
+and the modules below) for the profiled steps only.
 
 Then the image path: 12 frames of the synthetic sequence at the KITTI
 size (chip_smoke.py's phase 6 settings) are rendered and moved to the
@@ -226,6 +228,22 @@ def profile_calls(what: str, call, stages, card: str,
               f"{e.count / PROFILED:6.0f}  {e.key[:90]}")
 
 
+def eager_frames() -> None:
+    """Point `process_frame` at its eager body, whose stages the port's
+    spans label: a frame that replays the CUDA graphs enters none.  A tree
+    without the graphs is left as it is."""
+    import mono_lidar_depth_tpu_torch as T
+    from mono_lidar_depth_tpu_torch.tracks import pipeline as tracks
+    from mono_lidar_depth_tpu_torch.vo import pipeline as vo
+
+    eager = getattr(tracks, "_process_frame_eager", None)
+    if eager is not None:
+        T.process_frame = vo.process_frame = eager
+        print("profile_step: process_frame runs its eager body "
+              "(tracks/pipeline._process_frame_eager), not the CUDA graphs, "
+              "so that its stages show")
+
+
 def main() -> int:
     import torch
     import mono_lidar_depth_tpu_torch as T
@@ -246,6 +264,7 @@ def main() -> int:
     cfg = T.DepthEstimatorConfig(do_use_depth_segmentation=False)
     ocfg = T.OdometryConfig()
     print(f"profile_step: {targets} [{card}]")
+    eager_frames()
 
     if "odometry" in targets:
         sc = cs.bench_scene(frames=calls)

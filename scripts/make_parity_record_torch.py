@@ -92,6 +92,7 @@ from mono_lidar_depth_tpu_torch.obs.launches import (  # noqa: E402
     kernel_launches, launches_since)
 from mono_lidar_depth_tpu_torch.tracks import (  # noqa: E402
     pipeline as tracks_pipeline)
+from mono_lidar_depth_tpu_torch.vo import pipeline as vo_pipeline  # noqa: E402
 from mono_lidar_depth_tpu_torch.vo.metrics import ate_rmse  # noqa: E402
 from mono_lidar_depth_tpu_torch.vo.pipeline import OdometryConfig  # noqa: E402
 
@@ -272,12 +273,29 @@ def replay_on_cpu(seq, cfg, vo: dict, device) -> dict:
 
 
 @contextlib.contextmanager
+def eager_frames():
+    """While open, `process_frame` runs its eager body wherever the port
+    calls it: a replay of its CUDA graphs (on a card) calls none of the
+    stage functions that a recorder wraps."""
+    mods = (tracks_pipeline, vo_pipeline, kitti_eval)
+    real = [m.process_frame for m in mods]
+    for m in mods:
+        m.process_frame = tracks_pipeline._process_frame_eager
+    try:
+        yield
+    finally:
+        for m, fn in zip(mods, real):
+            m.process_frame = fn
+
+
+@contextlib.contextmanager
 def outcomes_recorded():
     """While open, the depths and codes that every `process_frame`
     computes for the previous and the current frame
     (`estimate_depths_pair`) are appended to the yielded list, moved to
     the CPU, as numpy (depths [2M], codes [2M]): lanes 0..M-1 the previous
-    frame's, M..2M-1 the current frame's."""
+    frame's, M..2M-1 the current frame's.  The frames run the eager body
+    (`eager_frames`)."""
     outcomes, real = [], tracks_pipeline.estimate_depths_pair
 
     def estimate_depths_pair(*args, **kwargs):
@@ -288,7 +306,8 @@ def outcomes_recorded():
 
     tracks_pipeline.estimate_depths_pair = estimate_depths_pair
     try:
-        yield outcomes
+        with eager_frames():
+            yield outcomes
     finally:
         tracks_pipeline.estimate_depths_pair = real
 

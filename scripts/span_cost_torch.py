@@ -8,7 +8,9 @@ traffic as they are), on one CUDA card.
 Three readings, no profiler running unless said:
 
 1. The cell's frames, every other frame with each span of
-   `tracks/pipeline` and `core/depth_estimator` a null context: the host
+   `tracks/pipeline`, `tracks/frame_graph` and `core/depth_estimator` a
+   null context (on a card the frames replay CUDA graphs, which enter
+   only `assoc.frame` and `assoc.replay`): the host
    ms of each `process_frame` call and of each whole frame (upload,
    `process_frame`, read-back) on either side (median, mean), and the
    mean of the paired differences (a frame with spans less the null
@@ -49,14 +51,17 @@ def null_span(name, frame=False):
 def spans_off():
     """Every span of the association's call sites a null context."""
     from mono_lidar_depth_tpu_torch.core import depth_estimator
-    from mono_lidar_depth_tpu_torch.tracks import pipeline
+    from mono_lidar_depth_tpu_torch.tracks import frame_graph, pipeline
 
-    saved = pipeline.span, depth_estimator.span
-    pipeline.span = depth_estimator.span = null_span
+    mods = (pipeline, depth_estimator, frame_graph)
+    saved = [m.span for m in mods]
+    for m in mods:
+        m.span = null_span
     try:
         yield
     finally:
-        pipeline.span, depth_estimator.span = saved
+        for m, s in zip(mods, saved):
+            m.span = s
 
 
 def side(name: str):

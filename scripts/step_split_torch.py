@@ -92,7 +92,7 @@ def _gap(a, b):
 
 
 def _traced_step(seq, cfg, f, carry, device):
-    with chip_smoke._CascadeTrace(STAGES) as t:
+    with P.eager_frames(), chip_smoke._CascadeTrace(STAGES) as t:
         P.one_step(seq, cfg, f, state_from_numpy(state_to_numpy(carry),
                                                  device), device)
     return t

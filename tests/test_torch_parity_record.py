@@ -818,3 +818,6 @@ def test_replay_steps_on_cpu_of_a_cpu_run_is_the_run(disk):
     assert teval._frame_rng.__name__ == "_frame_rng"
     assert P.tracks_pipeline.estimate_depths_pair.__name__ == (
         "estimate_depths_pair")
+    # the recorders ran the eager body and gave process_frame back
+    for mod in (P.tracks_pipeline, P.vo_pipeline, teval):
+        assert mod.process_frame is T.process_frame

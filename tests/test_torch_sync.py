@@ -210,8 +210,11 @@ def test_update_tracks_seed_length(T_slots, M):
     ("core/row_segmentation.py", None),
     ("core/ransac.py", ["fit_ground_plane_semantic", "_pixel_index",
                         "_ls_plane", "_orient_up"]),
-    ("tracks/pipeline.py", ["_frame_ground_plane", "process_frame",
+    ("tracks/pipeline.py", ["_frame_ground_plane", "_front", "_back",
+                            "_process_frame_eager", "process_frame",
                             "process_sequence"]),
+    # the graphed frame: signature, copies in and out, replays
+    ("tracks/frame_graph.py", None),
     ("eval/kitti_eval.py", ["_scan_depth_chunk", "_scan_vo_chunk",
                             "_chunk_frame", "_frame_rng"]),
     ("vo/pose_graph.py", ["_weight6", "_edge_residual", "_edge_lin",
@@ -240,8 +243,8 @@ def test_update_tracks_seed_length(T_slots, M):
     ("obs/launches.py", ["kernel_launches", "launches_since"]),
 ])
 def test_no_read_back_in_the_new_per_frame_code(path, functions):
-    """Region growing, the semantic plane, the chunk runners, the pose
-    graph (but `_pcg`), BA, the collective, the sharded programs, the
+    """Region growing, the semantic plane, the graphed frame, the chunk
+    runners, the pose graph (but `_pcg`), BA, the collective, the sharded programs, the
     bench's leg bodies (all but its serving loop) and the endurance twin's
     per-pair and per-frame functions read nothing back to the host: no `.item()`, `.tolist()`, `.cpu()`,
     `.numpy()`, `int(...)`, `float(...)` or `bool(...)` of a tensor, and no
