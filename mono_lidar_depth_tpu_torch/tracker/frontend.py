@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..obs.timing import span
 from .harris import detect_features
 from .klt import build_pyramid, track_features
 
@@ -90,25 +91,37 @@ def _set_drop(base: torch.Tensor, index: torch.Tensor, values
 def track_frame(state: TrackerState, img: torch.Tensor,
                 cell_size: int = 16, patch: int = 9, iters: int = 8
                 ) -> tuple[TrackerState, TrackerOutput]:
-    """Advance the tracker by one frame."""
+    """Advance the tracker by one frame.  Spans (`obs.timing`):
+    `tracker.frame` the root, with `tracker.pyramid`, `tracker.klt` (both
+    LK passes and the acceptance gate) and `tracker.detect` inside it."""
+    with span("tracker.frame", frame=True):
+        return _track_frame(state, img, cell_size, patch, iters)
+
+
+def _track_frame(state: TrackerState, img: torch.Tensor, cell_size: int,
+                 patch: int, iters: int
+                 ) -> tuple[TrackerState, TrackerOutput]:
     N = state.uv.shape[0]
     dev = state.uv.device
-    pyr_next = tuple(build_pyramid(img, len(state.pyramid)))
+    with span("tracker.pyramid"):
+        pyr_next = tuple(build_pyramid(img, len(state.pyramid)))
     # constant-velocity warm start: last frame's flow (plus the median
     # flow for lanes with no history — fresh detections during fast
     # motion inherit the camera's dominant image motion)
     has_hist = state.valid & (torch.sum(torch.abs(state.flow), dim=1) > 0)
     med_flow = torch.nan_to_num(_nanmedian0(state.flow, has_hist))
     lane_flow = torch.where(has_hist[:, None], state.flow, med_flow[None, :])
-    uv_t, ok = track_features(state.pyramid, pyr_next, state.uv, state.valid,
-                              patch=patch, iters=iters,
-                              uv_guess=state.uv + lane_flow)
+    with span("tracker.klt"):
+        uv_t, ok = track_features(state.pyramid, pyr_next, state.uv,
+                                  state.valid, patch=patch, iters=iters,
+                                  uv_guess=state.uv + lane_flow)
     survived = ok & state.valid
 
     # Replenish: detect in cells not already occupied by survivors.
-    det_uv, det_ok = detect_features(
-        img, N, cell_size=cell_size,
-        occupied_uv=uv_t, occupied_valid=survived)
+    with span("tracker.detect"):
+        det_uv, det_ok = detect_features(
+            img, N, cell_size=cell_size,
+            occupied_uv=uv_t, occupied_valid=survived)
 
     # Allocate detections (in detection order) to free lanes (in lane
     # order) — same rank-matching scheme as tracks.table.update_tracks.

@@ -21,6 +21,7 @@ import torch
 from ..config import DepthEstimatorConfig
 from ..core.geometry import SE3, PinholeCamera, norm3
 from ..device import Device, default_device
+from ..obs.timing import span
 from ..tracks.pipeline import FrameInput, TrackletDepthState, process_frame
 from .ba import BAProblem, run_ba
 from .pose import PoseEstimate, estimate_pose_gn
@@ -85,10 +86,16 @@ def odometry_step(
     frame: FrameInput,
 ) -> tuple[OdometryState, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One full odometry frame: (state', R_cw [3,3], t_cw [3], diag [3])
-    with diag = [num_motion_tracks, num_inliers, mean reproj error]."""
-    tl_state, depths, codes = process_frame(
-        cfg, camera, lidar_to_cam, state.tracklets, frame)
-    return _odometry_tail(cfg, ocfg, camera, state, tl_state, depths, codes)
+    with diag = [num_motion_tracks, num_inliers, mean reproj error].
+
+    Spans (`obs.timing`): `odo.step` the root, with `process_frame`'s
+    `assoc.frame` inside it, then `vo.pose_gn`, `vo.branch_sync`,
+    `vo.pose_retry` (only when the retry runs) and `vo.ba`."""
+    with span("odo.step", frame=True):
+        tl_state, depths, codes = process_frame(
+            cfg, camera, lidar_to_cam, state.tracklets, frame)
+        return _odometry_tail(cfg, ocfg, camera, state, tl_state, depths,
+                              codes)
 
 
 def _select(pred: torch.Tensor, a: PoseEstimate, b: PoseEstimate
@@ -113,9 +120,10 @@ def _odometry_tail(cfg, ocfg, camera, state, tl_state, depths, codes):
     lm_prev = rays / rz[:, None] * d_prev[:, None]
     n_usable = usable.sum()
 
-    est = estimate_pose_gn(camera, lm_prev, uv_cur, usable,
-                           R_init=state.rel_R, t_init=state.rel_t,
-                           iters=ocfg.gn_iters)
+    with span("vo.pose_gn"):
+        est = estimate_pose_gn(camera, lm_prev, uv_cur, usable,
+                               R_init=state.rel_R, t_init=state.rel_t,
+                               iters=ocfg.gn_iters)
 
     # Retry from identity when the warm start left the GN basin.
     need_retry = ((est.num_inliers < ocfg.min_motion_tracks)
@@ -124,13 +132,16 @@ def _odometry_tail(cfg, ocfg, camera, state, tl_state, depths, codes):
                   | (est.mean_error > ocfg.retry_max_err))
     run_it = (state.frame_idx % ocfg.ba_every == 0) & (state.frame_idx >= 1)
     # The one host sync of the step: both branch predicates at once.
-    retry_host, run_ba_host = torch.stack([need_retry, run_it]).tolist()
+    with span("vo.branch_sync"):
+        retry_host, run_ba_host = torch.stack([need_retry,
+                                               run_it]).tolist()
     if retry_host:
-        est2 = estimate_pose_gn(camera, lm_prev, uv_cur, usable,
-                                R_init=torch.eye(3, device=dev),
-                                t_init=torch.zeros(3, device=dev),
-                                iters=ocfg.gn_iters)
-        est = _select(est2.num_inliers > est.num_inliers, est2, est)
+        with span("vo.pose_retry"):
+            est2 = estimate_pose_gn(camera, lm_prev, uv_cur, usable,
+                                    R_init=torch.eye(3, device=dev),
+                                    t_init=torch.zeros(3, device=dev),
+                                    iters=ocfg.gn_iters)
+            est = _select(est2.num_inliers > est.num_inliers, est2, est)
 
     # Acceptance gates: enough inliers, converged residual, plausible
     # translation change (not binding before the first accepted motion).
@@ -155,46 +166,50 @@ def _odometry_tail(cfg, ocfg, camera, state, tl_state, depths, codes):
     win_valid = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
                            state.win_valid[:-1]])
 
-    # ---- sliding-window BA: landmark l == track slot l, window frame k
-    # == table column k.
-    cols = torch.arange(W, device=dev)
-    obs_mask = (table.active()[None, :]
-                & (cols[:, None] < table.length[None, :])
-                & win_valid[:, None])
-    obs_uv = table.uv[:, :W].transpose(0, 1)  # [W, L, 2]
-    dpri = table.depth[:, :W].transpose(0, 1)  # [W, L]
-    dmask = obs_mask & (dpri > 0)
+    with span("vo.ba"):
+        # ---- sliding-window BA: landmark l == track slot l, window
+        # frame k == table column k.
+        cols = torch.arange(W, device=dev)
+        obs_mask = (table.active()[None, :]
+                    & (cols[:, None] < table.length[None, :])
+                    & win_valid[:, None])
+        obs_uv = table.uv[:, :W].transpose(0, 1)  # [W, L, 2]
+        dpri = table.depth[:, :W].transpose(0, 1)  # [W, L]
+        dmask = obs_mask & (dpri > 0)
 
-    # Landmark init: unproject the newest in-window depth observation.
-    first_k = torch.argmax(dmask.to(torch.uint8), dim=0)  # [L]
-    any_d = dmask.any(0)
-    uv_init = torch.gather(obs_uv, 0, first_k[None, :, None].expand(
-        1, -1, 2))[0]
-    d_init = torch.gather(dpri, 0, first_k[None, :])[0]
-    rays_l = camera.viewing_rays(uv_init)
-    lm_cam = rays_l / torch.clamp(rays_l[:, 2:3], min=1e-6) * d_init[:, None]
-    lm_world = torch.einsum("lji,lj->li", win_R[first_k],
-                            lm_cam - win_t[first_k])  # R^T (p - t)
+        # Landmark init: unproject the newest in-window depth observation.
+        first_k = torch.argmax(dmask.to(torch.uint8), dim=0)  # [L]
+        any_d = dmask.any(0)
+        uv_init = torch.gather(obs_uv, 0, first_k[None, :, None].expand(
+            1, -1, 2))[0]
+        d_init = torch.gather(dpri, 0, first_k[None, :])[0]
+        rays_l = camera.viewing_rays(uv_init)
+        lm_cam = (rays_l / torch.clamp(rays_l[:, 2:3], min=1e-6)
+                  * d_init[:, None])
+        lm_world = torch.einsum("lji,lj->li", win_R[first_k],
+                                lm_cam - win_t[first_k])  # R^T (p - t)
 
-    if ocfg.persist_landmarks:
-        persisted = (state.lm_id == table.track_id) & (state.lm_id >= 0)
-        lm_world = torch.where(persisted[:, None], state.lm_world, lm_world)
+        if ocfg.persist_landmarks:
+            persisted = ((state.lm_id == table.track_id)
+                         & (state.lm_id >= 0))
+            lm_world = torch.where(persisted[:, None], state.lm_world,
+                                   lm_world)
 
-    lm_valid = table.active() & any_d & (obs_mask.sum(0) >= 2)
+        lm_valid = table.active() & any_d & (obs_mask.sum(0) >= 2)
 
-    # Gauge: fix the oldest valid pose (and all invalid slots).
-    oldest_valid = win_valid.sum() - 1
-    problem = BAProblem(
-        R=win_R, t=win_t, landmarks=lm_world, obs_uv=obs_uv,
-        obs_mask=obs_mask, depth_prior=dpri, depth_mask=dmask,
-        fixed=(cols == oldest_valid) | ~win_valid, lm_valid=lm_valid)
-    if run_ba_host:
-        res = run_ba(camera, problem, iters=ocfg.ba_iters,
-                     depth_weight=ocfg.depth_weight, compute_cost=False)
-        ba_R, ba_t, ba_lm = (res.problem.R, res.problem.t,
-                             res.problem.landmarks)
-    else:
-        ba_R, ba_t, ba_lm = problem.R, problem.t, problem.landmarks
+        # Gauge: fix the oldest valid pose (and all invalid slots).
+        oldest_valid = win_valid.sum() - 1
+        problem = BAProblem(
+            R=win_R, t=win_t, landmarks=lm_world, obs_uv=obs_uv,
+            obs_mask=obs_mask, depth_prior=dpri, depth_mask=dmask,
+            fixed=(cols == oldest_valid) | ~win_valid, lm_valid=lm_valid)
+        if run_ba_host:
+            res = run_ba(camera, problem, iters=ocfg.ba_iters,
+                         depth_weight=ocfg.depth_weight, compute_cost=False)
+            ba_R, ba_t, ba_lm = (res.problem.R, res.problem.t,
+                                 res.problem.landmarks)
+        else:
+            ba_R, ba_t, ba_lm = problem.R, problem.t, problem.landmarks
 
     if ocfg.persist_landmarks:
         lm_world_out = torch.where(lm_valid[:, None], ba_lm, 0.0)

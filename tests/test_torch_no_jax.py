@@ -38,7 +38,11 @@ SCRIPTS = ["chip_smoke.py", "profile_step.py", "gate_variants.py",
            "scripts/bench_scaling_torch.py", "scripts/multihost_demo_torch.py",
            "scripts/make_parity_record_torch.py",
            "scripts/step_split_torch.py", "scripts/card_draws_torch.py",
-           "scripts/span_cost_torch.py"]
+           "scripts/span_cost_torch.py", "tests/reference_odometry.py",
+           "limo_bench/oracle_odometry.py"]
+# the plain references of the odometry stream: written apart from the port
+ODOMETRY_REFERENCES = ["tests/reference_odometry.py",
+                       "limo_bench/oracle_odometry.py"]
 
 
 def _port_modules():
@@ -68,6 +72,23 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", ODOMETRY_REFERENCES)
+def test_odometry_reference_stands_apart(path):
+    """Each copy of the odometry stream's reference loads neither JAX nor
+    the JAX package nor the port it judges."""
+    code = (
+        "import importlib.util as u, sys\n"
+        f"spec = u.spec_from_file_location('reference', {path!r})\n"
+        "spec.loader.exec_module(u.module_from_spec(spec))\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    tops = set(eval(out.stdout.strip().splitlines()[-1]))
+    assert "torch" in tops
+    assert not tops & {*FORBIDDEN, "mono_lidar_depth_tpu_torch"}, tops
 
 
 def _imported(node):
