@@ -22,6 +22,9 @@ relative to Hpp's trace and so must see the whole sum.  The [6K, 6K]
 solve and the pose update then run on every rank on the same numbers;
 the landmark back-substitution stays local.  `ba_cost` sums its total
 over the group.  Communication is O(K^2) per iteration, whatever L.
+
+On a card `run_ba` replays a CUDA graph of `_run_ba_eager`
+(`vo/graphed.py`).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from ..collectives import all_reduce_sum
 from ..core.geometry import PinholeCamera, _div
+from .graphed import Graphed
 from .lie import se3_exp
 
 
@@ -212,12 +216,11 @@ def ba_iteration(camera: PinholeCamera, pb: BAProblem, huber_px: float,
                        landmarks=pb.landmarks + dl.T)
 
 
-def run_ba(camera: PinholeCamera, problem: BAProblem, iters: int = 8,
-           huber_px: float = 2.0, depth_weight: float = 1.0,
-           huber_depth: float = 0.5, damping: float = 1e-4,
-           compute_cost: bool = True) -> BAResult:
-    """`iters` damped GN iterations; `compute_cost=False` skips the two
-    diagnostic cost passes."""
+def _run_ba_eager(camera: PinholeCamera, problem: BAProblem, iters: int = 8,
+                  huber_px: float = 2.0, depth_weight: float = 1.0,
+                  huber_depth: float = 0.5, damping: float = 1e-4,
+                  compute_cost: bool = True) -> BAResult:
+    """`run_ba`'s body, run eagerly."""
     zero = torch.zeros((), device=problem.R.device)
     c0 = (ba_cost(camera, problem, huber_px, depth_weight, huber_depth)
           if compute_cost else zero)
@@ -228,3 +231,20 @@ def run_ba(camera: PinholeCamera, problem: BAProblem, iters: int = 8,
     c1 = (ba_cost(camera, out, huber_px, depth_weight, huber_depth)
           if compute_cost else zero)
     return BAResult(problem=out, initial_cost=c0, final_cost=c1)
+
+
+_GRAPHS = Graphed(_run_ba_eager, "vo.ba.replay")
+
+
+def run_ba(camera: PinholeCamera, problem: BAProblem, iters: int = 8,
+           huber_px: float = 2.0, depth_weight: float = 1.0,
+           huber_depth: float = 0.5, damping: float = 1e-4,
+           compute_cost: bool = True) -> BAResult:
+    """`iters` damped GN iterations; `compute_cost=False` skips the two
+    diagnostic cost passes.
+
+    On the current card the call replays the CUDA graph of its signature
+    (span `vo.ba.replay`), captured on its first call, which runs eagerly;
+    elsewhere it runs `_run_ba_eager` (`vo/graphed.py`)."""
+    return _GRAPHS(camera, problem, iters, huber_px, depth_weight,
+                   huber_depth, damping, compute_cost)

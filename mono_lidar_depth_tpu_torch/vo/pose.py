@@ -4,7 +4,8 @@ vo/pose.py).
 Huber-weighted GN over all observations, then a hard-outlier refit.
 The iteration loops are Python loops; every step runs both stages
 unconditionally and selects with `torch.where`, as the JAX version
-does, so no step reads a value back to the host.
+does, so no step reads a value back to the host.  On a card the call
+replays a CUDA graph of `_estimate_pose_gn_eager` (`vo/graphed.py`).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.geometry import PinholeCamera
+from .graphed import Graphed
 from .lie import se3_exp
 from .linalg6 import solve6_spd
 
@@ -27,7 +29,7 @@ class PoseEstimate(NamedTuple):
     hessian: torch.Tensor  # [6, 6] final J^T W J
 
 
-def estimate_pose_gn(
+def _estimate_pose_gn_eager(
     camera: PinholeCamera,
     landmarks_ref: torch.Tensor,
     obs_uv: torch.Tensor,
@@ -39,8 +41,7 @@ def estimate_pose_gn(
     outlier_px: float = 6.0,
     min_depth: float = 0.25,
 ) -> PoseEstimate:
-    """Estimate T with x_cur = T(x_ref) from landmarks [N, 3] in the
-    reference camera and their pixels [N, 2] in the current image."""
+    """`estimate_pose_gn`'s body, run eagerly."""
     dev = landmarks_ref.device
     f = camera.focal_length
     if R_init is None:
@@ -102,3 +103,29 @@ def estimate_pose_gn(
     return PoseEstimate(rotation=R, translation=t, inliers=inliers,
                         mean_error=mean_err, num_inliers=n_in,
                         hessian=torch.einsum("rin,rjn->ij", Jw, J))
+
+
+_GRAPHS = Graphed(_estimate_pose_gn_eager, "vo.pose_gn.replay")
+
+
+def estimate_pose_gn(
+    camera: PinholeCamera,
+    landmarks_ref: torch.Tensor,
+    obs_uv: torch.Tensor,
+    valid: torch.Tensor,
+    R_init: Optional[torch.Tensor] = None,
+    t_init: Optional[torch.Tensor] = None,
+    iters: int = 10,
+    huber_px: float = 3.0,
+    outlier_px: float = 6.0,
+    min_depth: float = 0.25,
+) -> PoseEstimate:
+    """Estimate T with x_cur = T(x_ref) from landmarks [N, 3] in the
+    reference camera and their pixels [N, 2] in the current image.
+
+    On the current card the call replays the CUDA graph of its signature
+    (span `vo.pose_gn.replay`), captured on its first call, which runs
+    eagerly; elsewhere it runs `_estimate_pose_gn_eager`
+    (`vo/graphed.py`)."""
+    return _GRAPHS(camera, landmarks_ref, obs_uv, valid, R_init, t_init,
+                   iters, huber_px, outlier_px, min_depth)
