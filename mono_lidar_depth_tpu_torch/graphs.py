@@ -1,14 +1,15 @@
-"""The odometry's solvers (`vo/pose.estimate_pose_gn`, `vo/ba.run_ba`)
-replayed as CUDA graphs.
+"""CUDA-graph replay of the port's per-frame functions.
 
-Each solver is a fixed number of Gauss-Newton iterations of small
-kernels (at the odometry cell's size ~3,600 a GN call and ~1,900 a BA
-call), with no host read and every data-dependent choice a select: on a
-card the host's dispatch, not the card, sets its pace.  `Graphed` captures a solver's eager body
+`tracks/pipeline.process_frame` (two segments around the eager neighbor
+gather), `vo/pose.estimate_pose_gn` and `vo/ba.run_ba` are each a fixed
+sequence of small kernels (at the benchmark's sizes some 1,600 a frame,
+~3,600 a GN call, ~1,900 a BA call), with no host read and every
+data-dependent choice a select: on a card the host's dispatch, not the
+card, sets their pace.  `Graphed` captures such a function's eager body
 once per input signature and replays it: the kernels, their order and
 their arithmetic are the eager body's, so a replay returns what the
 eager call returns, to the bit.  The caller keeps calling the same
-Python function, once per solve.
+Python function.
 
 The first call of a signature runs the eager body (the warm-up) and
 returns its result, then captures the body on static copies of the
@@ -20,9 +21,8 @@ the eager body.  A caller whose shapes change from call to call would
 pay a warm-up and a capture on each: it should call the eager body.
 
 `capture` is the one place that touches the card's graph API
-(`tracks/frame_graph.capture_cuda`); a test passes a plain callable that
-runs the body on the same static tensors, which drives the buffer
-plumbing on the CPU.
+(`capture_cuda`); a test passes a plain callable that runs the body on
+the same static tensors, which drives the buffer plumbing on the CPU.
 """
 
 from __future__ import annotations
@@ -32,11 +32,68 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..obs.timing import span
-from ..tracks.frame_graph import (_kernel_switches, _rebuild, capture_cuda,
-                                  clone_tree, copy_into, leaves)
+from .obs.timing import span
 
-BOUND = 4  # signatures kept per solver; each holds its graph's memory pool
+BOUND = 4  # signatures kept per function; each holds its graph's memory pool
+
+
+def leaves(tree) -> list:
+    """The tensors of a nest of NamedTuples and tuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [x for item in tree for x in leaves(item)]
+    return []
+
+
+def rebuild(tree, it):
+    """`tree` with its tensor leaves taken in order from the iterator."""
+    if isinstance(tree, torch.Tensor):
+        return next(it)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return tree._make(rebuild(x, it) for x in tree)
+    if isinstance(tree, tuple):
+        return tuple(rebuild(x, it) for x in tree)
+    return tree
+
+
+def copy_into(dsts: list, srcs: list) -> None:
+    """dst.copy_(src) pair by pair (same shape and dtype), one foreach copy
+    per dtype."""
+    groups: dict = {}
+    for d, s in zip(dsts, srcs, strict=True):
+        pair = groups.setdefault(d.dtype, ([], []))
+        pair[0].append(d)
+        pair[1].append(s)
+    for d, s in groups.values():
+        torch._foreach_copy_(d, s)
+
+
+def clone_tree(tree):
+    """`tree` with every tensor leaf cloned."""
+    src = leaves(tree)
+    out = [torch.empty_like(t) for t in src]
+    copy_into(out, src)
+    return rebuild(tree, iter(out))
+
+
+def capture_cuda(body: Callable):
+    """Capture `body` into a CUDA graph: (replay, its outputs)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = body()
+    return graph.replay, out
+
+
+def kernel_switches() -> tuple:
+    """The process-wide switches that choose kernels or their precision
+    when a body is captured, which a replay cannot change: TF32 for
+    matmuls and cuDNN, the float32 matmul precision, deterministic
+    algorithms."""
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision(),
+            torch.are_deterministic_algorithms_enabled())
 
 
 class _Graph(NamedTuple):
@@ -72,7 +129,7 @@ class Graphed:
     def signature(self, args: tuple):
         """The key of the call's graph, or None where it runs eagerly: the
         device, every Python value, every tensor's shape and dtype, and
-        the switches that choose kernels (`_kernel_switches`)."""
+        the switches that choose kernels (`kernel_switches`)."""
         tensors = leaves(args)
         dev = tensors[0].device
         if dev.type != self.device_type or any(t.device != dev
@@ -82,7 +139,7 @@ class Graphed:
                 dev.index != torch.cuda.current_device()
                 or torch.cuda.is_current_stream_capturing()):
             return None
-        return (dev, _shapes(args), _kernel_switches())
+        return (dev, _shapes(args), kernel_switches())
 
     def __call__(self, *args):
         key = self.signature(args)
@@ -103,6 +160,6 @@ class Graphed:
 
     def _capture(self, args: tuple) -> _Graph:
         inputs = [t.clone() for t in leaves(args)]
-        static = _rebuild(args, iter(inputs))
-        replay, outputs, _ = self.capture(lambda: self.eager(*static))
+        static = rebuild(args, iter(inputs))
+        replay, outputs = self.capture(lambda: self.eager(*static))
         return _Graph(inputs, replay, outputs)

@@ -8,7 +8,7 @@ the current frame), and the track-table update.  State is an explicit
 NamedTuple passed in and returned.  A frame that carries a semantic label
 image takes its ground plane from the road classes instead of RANSAC.  On
 a card `process_frame` replays the frame as two CUDA graphs around the
-gather (`frame_graph.py`); `_process_frame_eager` is the same frame op by
+gather (`graphs.Graphed`); `_process_frame_eager` is the same frame op by
 op.
 """
 
@@ -20,7 +20,8 @@ from typing import NamedTuple, Optional, Union
 import torch
 
 from ..config import DepthEstimatorConfig
-from ..core.depth_estimator import (estimate_depths_pair, no_ground_plane,
+from ..core.depth_estimator import (depth_pair_cascade, depth_pair_gather,
+                                    estimate_depths_pair, no_ground_plane,
                                     rasterize_cloud)
 from ..core.geometry import SE3, PinholeCamera
 from ..core.projection import POINT_NOT_DEFINED, FrameCloud
@@ -28,8 +29,8 @@ from ..core.ransac import (GroundPlane, RansacDraws, fit_ground_plane_ransac,
                            fit_ground_plane_semantic)
 from ..core.result_types import NUM_RESULT_TYPES
 from ..device import Device, default_device
+from ..graphs import Graphed
 from ..obs.timing import span
-from .frame_graph import FrameGraphs
 from .table import TrackTable, match_tracks, update_tracks
 
 # RANSAC randomness of one frame: a generator on the cloud's device, or
@@ -164,21 +165,29 @@ def _front(cfg: DepthEstimatorConfig, camera: PinholeCamera,
     return gp, match, frame_cur
 
 
-def _back(state: TrackletDepthState, frame: FrameInput, front,
-          est_prev, est_new
-          ) -> tuple[TrackletDepthState, torch.Tensor, torch.Tensor]:
-    """The stages after the depth pair: the table update and the
-    counters; returns `process_frame`'s result."""
-    gp, match, frame_cur = front
+def _update(table: TrackTable, counters: torch.Tensor, frame: FrameInput,
+            match, est_prev, est_new):
+    """The table update and the counters after the depth pair: (table,
+    counters, depths_new, codes_new)."""
     with span("assoc.update_tracks"):
         table, _ = update_tracks(
-            state.table, frame.ids, frame.ids_valid, frame.uv_new,
-            frame.uv_prev, est_new.depths, est_prev.depths, frame.stamp,
-            match=match)
-    new_state = TrackletDepthState(
-        table=table, frame_last=frame_cur, gp_last=gp,
-        counters=state.counters + est_new.counters + est_prev.counters)
-    return new_state, est_new.depths, est_new.codes
+            table, frame.ids, frame.ids_valid, frame.uv_new, frame.uv_prev,
+            est_new.depths, est_prev.depths, frame.stamp, match=match)
+    return (table, counters + est_new.counters + est_prev.counters,
+            est_new.depths, est_new.codes)
+
+
+def _back(cfg: DepthEstimatorConfig, camera: PinholeCamera,
+          lidar_to_cam: SE3, nbs, gp: GroundPlane, match, table: TrackTable,
+          gp_last: GroundPlane, counters: torch.Tensor, frame: FrameInput):
+    """The stages after the neighbor gather, on its neighbor sets `nbs`:
+    the depth cascade, then `_update`.  Of the planes it reads `coeffs`
+    and `ok`, of the frame its lanes."""
+    with span("assoc.depth_pair"):
+        est_prev, est_new = depth_pair_cascade(
+            cfg, camera, lidar_to_cam, nbs, frame.uv_prev, match[1], gp_last,
+            frame.uv_new, frame.ids_valid, gp)
+    return _update(table, counters, frame, match, est_prev, est_new)
 
 
 def _process_frame_eager(
@@ -187,25 +196,24 @@ def _process_frame_eager(
     lidar_to_cam: SE3,
     state: TrackletDepthState,
     frame: FrameInput,
-    depth_pair=None,
 ) -> tuple[TrackletDepthState, torch.Tensor, torch.Tensor]:
     """`process_frame` op by op on the host: each stage in a span of
-    `obs.timing` (`assoc.frame` the root).  `depth_pair` takes
-    `estimate_depths_pair`'s arguments and result (the graphs' warm-up
-    passes one that keeps the gather's outputs); by default the module's
-    `estimate_depths_pair`, looked up per call."""
+    `obs.timing` (`assoc.frame` the root)."""
     with span("assoc.frame", frame=True):
-        front = _front(cfg, camera, lidar_to_cam, state.table, frame)
-        gp, (_, is_new), frame_cur = front
+        gp, match, frame_cur = _front(cfg, camera, lidar_to_cam, state.table,
+                                      frame)
         with span("assoc.depth_pair"):
-            est_prev, est_new = (depth_pair or estimate_depths_pair)(
+            est_prev, est_new = estimate_depths_pair(
                 cfg, camera, lidar_to_cam,
-                state.frame_last, frame.uv_prev, is_new, state.gp_last,
+                state.frame_last, frame.uv_prev, match[1], state.gp_last,
                 frame_cur, frame.uv_new, frame.ids_valid, gp)
-        return _back(state, frame, front, est_prev, est_new)
+        table, counters, depths, codes = _update(
+            state.table, state.counters, frame, match, est_prev, est_new)
+    return TrackletDepthState(table, frame_cur, gp, counters), depths, codes
 
 
-_GRAPHS = FrameGraphs(_process_frame_eager, _front, _back)
+_FRONT = Graphed(_front, "assoc.replay")
+_BACK = Graphed(_back, "assoc.replay")
 
 
 def process_frame(
@@ -220,26 +228,41 @@ def process_frame(
     Functional: neither `state` nor `frame` is changed, and nothing that
     is returned changes when a later frame runs.
 
-    On a card the frame replays two CUDA graphs (`tracks/frame_graph.py`):
-    graph A (ground plane, track matching, rasterization), then one eager
-    launch of the neighbor gather, then graph B (the depth cascade, the
+    On a card the frame replays two CUDA graphs (`graphs.Graphed`): the
+    front (ground plane, track matching, rasterization), then one eager
+    launch of the neighbor gather, then the back (the depth cascade, the
     table update, the counters).  They hold the eager body's kernels in
     its order and are captured once per input signature: the device,
     `cfg`, `camera`, whether `semantic` is given, the kind of `rng`, the
     shape and dtype of every tensor, and the TF32, matmul-precision and
-    determinism switches in force.  A frame replays when every
-    tensor is on the current CUDA device, no stream capture is running,
-    the depth pair is the fused one (`do_use_depth_segmentation` and
-    `set_all_depths_to_zero` off) and, where RANSAC runs (no `semantic`),
-    its draws are pre-drawn `(sub_idx, picks)`: a generator is not
-    replayed.  Every other frame, CPU tensors included, and the first
-    frame of each signature run `_process_frame_eager`, the same stages op
-    by op, each in a span of `obs.timing` (`assoc.frame` the root); a
-    replayed frame enters only `assoc.frame` and `assoc.replay`."""
-    graph = _GRAPHS.get(cfg, camera, lidar_to_cam, state, frame)
-    if graph is None:
+    determinism switches in force.  A segment replays when every tensor
+    is on the current CUDA device and no stream capture is running.  The
+    frame runs `_process_frame_eager`, the same stages op by op, where
+    the depth pair is not the fused one (`do_use_depth_segmentation` or
+    `set_all_depths_to_zero` on) or where RANSAC runs (no `semantic`)
+    from a generator: only pre-drawn `(sub_idx, picks)` are replayed; an
+    `rng` that no stage reads is dropped.  The first frame of a signature
+    and every frame off the card run the segments' stages eagerly, each
+    in a span of `obs.timing` (`assoc.frame` the root; `assoc.depth_pair`
+    holds the cascade, the gather runs between the segments); a replayed
+    frame enters only `assoc.frame` and `assoc.replay`."""
+    ransac = cfg.do_use_ransac_plane and frame.semantic is None
+    if not ransac:
+        frame = frame._replace(rng=None)
+    if (cfg.do_use_depth_segmentation or cfg.set_all_depths_to_zero
+            or (ransac and isinstance(frame.rng, torch.Generator))):
         return _process_frame_eager(cfg, camera, lidar_to_cam, state, frame)
-    return graph(lidar_to_cam, state, frame)
+    with span("assoc.frame", frame=True):
+        gp, match, frame_cur = _FRONT(cfg, camera, lidar_to_cam, state.table,
+                                      frame)
+        nbs = depth_pair_gather(cfg, camera, state.frame_last, frame.uv_prev,
+                                frame_cur, frame.uv_new)
+        table, counters, depths, codes = _BACK(
+            cfg, camera, lidar_to_cam, nbs, gp._replace(inlier_mask=None),
+            match, state.table, state.gp_last._replace(inlier_mask=None),
+            state.counters, frame._replace(cloud=None, cloud_valid=None,
+                                           rng=None, semantic=None))
+    return TrackletDepthState(table, frame_cur, gp, counters), depths, codes
 
 
 def process_sequence(cfg: DepthEstimatorConfig, camera: PinholeCamera,

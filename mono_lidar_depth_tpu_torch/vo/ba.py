@@ -24,7 +24,7 @@ the landmark back-substitution stays local.  `ba_cost` sums its total
 over the group.  Communication is O(K^2) per iteration, whatever L.
 
 On a card `run_ba` replays a CUDA graph of `_run_ba_eager`
-(`vo/graphed.py`).
+(`graphs.py`).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ import torch
 
 from ..collectives import all_reduce_sum
 from ..core.geometry import PinholeCamera, _div
-from .graphed import Graphed
+from ..graphs import Graphed
 from .lie import se3_exp
 
 
@@ -245,6 +245,6 @@ def run_ba(camera: PinholeCamera, problem: BAProblem, iters: int = 8,
 
     On the current card the call replays the CUDA graph of its signature
     (span `vo.ba.replay`), captured on its first call, which runs eagerly;
-    elsewhere it runs `_run_ba_eager` (`vo/graphed.py`)."""
+    elsewhere it runs `_run_ba_eager` (`graphs.py`)."""
     return _GRAPHS(camera, problem, iters, huber_px, depth_weight,
                    huber_depth, damping, compute_cost)

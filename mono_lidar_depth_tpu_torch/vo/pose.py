@@ -5,7 +5,7 @@ Huber-weighted GN over all observations, then a hard-outlier refit.
 The iteration loops are Python loops; every step runs both stages
 unconditionally and selects with `torch.where`, as the JAX version
 does, so no step reads a value back to the host.  On a card the call
-replays a CUDA graph of `_estimate_pose_gn_eager` (`vo/graphed.py`).
+replays a CUDA graph of `_estimate_pose_gn_eager` (`graphs.py`).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.geometry import PinholeCamera
-from .graphed import Graphed
+from ..graphs import Graphed
 from .lie import se3_exp
 from .linalg6 import solve6_spd
 
@@ -126,6 +126,6 @@ def estimate_pose_gn(
     On the current card the call replays the CUDA graph of its signature
     (span `vo.pose_gn.replay`), captured on its first call, which runs
     eagerly; elsewhere it runs `_estimate_pose_gn_eager`
-    (`vo/graphed.py`)."""
+    (`graphs.py`)."""
     return _GRAPHS(camera, landmarks_ref, obs_uv, valid, R_init, t_init,
                    iters, huber_px, outlier_px, min_depth)

@@ -8,7 +8,7 @@ traffic as they are), on one CUDA card.
 Three readings, no profiler running unless said:
 
 1. The cell's frames, every other frame with each span of
-   `tracks/pipeline`, `tracks/frame_graph` and `core/depth_estimator` a
+   `tracks/pipeline`, `graphs` and `core/depth_estimator` a
    null context (on a card the frames replay CUDA graphs, which enter
    only `assoc.frame` and `assoc.replay`): the host
    ms of each `process_frame` call and of each whole frame (upload,
@@ -50,10 +50,11 @@ def null_span(name, frame=False):
 @contextlib.contextmanager
 def spans_off():
     """Every span of the association's call sites a null context."""
+    from mono_lidar_depth_tpu_torch import graphs
     from mono_lidar_depth_tpu_torch.core import depth_estimator
-    from mono_lidar_depth_tpu_torch.tracks import frame_graph, pipeline
+    from mono_lidar_depth_tpu_torch.tracks import pipeline
 
-    mods = (pipeline, depth_estimator, frame_graph)
+    mods = (pipeline, depth_estimator, graphs)
     saved = [m.span for m in mods]
     for m in mods:
         m.span = null_span

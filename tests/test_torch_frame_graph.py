@@ -1,104 +1,38 @@
-"""`process_frame`'s graphed path (tracks/frame_graph.py) on the CPU.
+"""`process_frame`'s graphed path (two `graphs.Graphed` segments around the
+eager neighbor gather) on the CPU.
 
-A plain callable stands in for the CUDA graph: "capture" runs the body
-once on the static tensors, "replay" runs it again and copies its results
-into the outputs of the first run, as a replay rewrites its graph's
-memory.  That drives everything but the card's graph API: the copies in,
-the skipped copy of the state the graph returned last, graph B's copy
-back, the eager gather between the graphs, the clones out.
+A plain callable stands in for the CUDA graph
+(`test_torch_graphs.capture_plain`), which drives everything but the
+card's graph API: the copies in, the eager gather between the segments,
+the clones out, the state built from both segments' results.
 
 Bars: over the scene's frames the graphed path equals the eager body to
 the bit (semantic and pre-drawn RANSAC planes, and the road pass off); a
 returned state is unchanged after three later frames; a foreign state
-(primed, or an older frame's) is copied in and gives the eager result;
-the signature changes with a shape, a dtype, `semantic`, the kind of
-`rng`, `cfg`, `camera` and the TF32 switch, and stays across one
-stream's frames; CPU tensors, region growing, zero depths and a RANSAC
-generator run the eager body; the cache keeps its bound; a replayed
-frame records only `assoc.frame` and `assoc.replay`, and the capture
-none of the stages.
+(primed, or an older frame's) gives the eager result; region growing,
+zero depths and a RANSAC generator run the eager body, and CPU tensors
+run the segments' eager bodies, equal to the eager body; an `rng`
+that no stage reads (a label image is given) stays out of the key, so
+frames with two different generators replay under one; the first frame
+of a signature records the eager stages, a replayed frame only
+`assoc.frame` and `assoc.replay`.  The mechanism's own bars, over all its
+users, are in `test_torch_graphs.py`.
 """
 
-import numpy as np
 import pytest
 import torch
 
 import mono_lidar_depth_tpu_torch as T
-from mono_lidar_depth_tpu_torch.core.ransac import RansacDraws
-from mono_lidar_depth_tpu_torch.io import synthetic_dataset as tsyn
-from mono_lidar_depth_tpu_torch.io.kitti import pad_cloud
-from mono_lidar_depth_tpu_torch import precision
+from mono_lidar_depth_tpu_torch import graphs
 from mono_lidar_depth_tpu_torch.obs import timing
-from mono_lidar_depth_tpu_torch.tracks import frame_graph as fg
 from mono_lidar_depth_tpu_torch.tracks import pipeline
+from test_torch_graphs import assert_bits_equal, plain
+from test_torch_graphs import scene  # noqa: F401  (fixture)
 
-SPEC = dict(frames=8, image_width=384, image_height=128, focal=240.0,
-            lidar_rows=20, lidar_cols=500, step=0.7)
-SMALL = dict(max_points=16384, max_features=256, image_width=384,
-             image_height=128, ransac_num_hypotheses=128,
-             ransac_subsample_points=1024, radiusSearch_count_min=1)
-BITS = {1: torch.uint8, 4: torch.int32, 8: torch.int64}
 STAGES = {"assoc.frame", "assoc.ground_plane", "assoc.match_tracks",
           "assoc.rasterize", "assoc.depth_pair", "depth.segment",
           "depth.road", "assoc.update_tracks"}
-
-
-def capture_plain(body, pool=None):
-    """`frame_graph.capture_cuda`'s stand-in on the CPU.  A replay runs no
-    Python, so the body's spans record nothing there."""
-    out = body()
-
-    def replay():
-        record, timing._frames.open = timing._frames.open, None
-        try:
-            fg.copy_into(fg.leaves(out), fg.leaves(body()))
-        finally:
-            timing._frames.open = record
-
-    return replay, out, pool
-
-
-def graphs(bound=fg.BOUND):
-    return fg.FrameGraphs(pipeline._process_frame_eager, pipeline._front,
-                          pipeline._back, capture=capture_plain,
-                          device_type="cpu", bound=bound)
-
-
-@pytest.fixture(scope="module")
-def scene():
-    """Config, camera, transform, the primed state and 7 frames, each with
-    its label image and pre-drawn RANSAC indices."""
-    seq = tsyn.render_sequence(tsyn.SyntheticSpec(**SPEC), seed=6)
-    cfg = T.DepthEstimatorConfig(**SMALL)
-    rng = np.random.default_rng(11)
-    M = cfg.max_features
-    uv = np.clip(rng.uniform([4, 40], [380, 124], (M, 2))[None]
-                 + np.cumsum(rng.normal(0, 1.0, (len(seq), M, 2)), 0),
-                 [1, 1], [382, 126]).astype(np.float32)
-    frames = []
-    for k, (xyzi, count) in enumerate(seq.scans(cfg.max_points)):
-        cloud, valid = pad_cloud(xyzi, count, cfg.max_points)
-        # tracks come and go: every frame drops some ids and adds new ones
-        ids = np.arange(M, dtype=np.int32) + 17 * k * (rng.random(M) < 0.2)
-        draws = RansacDraws(
-            torch.from_numpy(np.flatnonzero(valid)[
-                rng.integers(0, count, 1024)]),
-            torch.from_numpy(rng.integers(0, 1024, (128, 3))))
-        frames.append(T.FrameInput(
-            cloud=torch.from_numpy(cloud), cloud_valid=torch.from_numpy(valid),
-            ids=torch.from_numpy(ids.astype(np.int32)),
-            ids_valid=torch.from_numpy(rng.random(M) < 0.9),
-            uv_new=torch.from_numpy(uv[k]),
-            uv_prev=torch.from_numpy(uv[max(k - 1, 0)]),
-            stamp=torch.tensor(seq.times[k], dtype=torch.float32),
-            rng=draws,
-            semantic=torch.from_numpy(seq.semantic(k).astype(np.int32))))
-    cam, l2c = seq.camera, seq.lidar_to_cam("cpu")
-    state = T.TrackletDepthState.create(cfg, M, 8, "cpu")
-    state = T.prime_state(cfg, cam, l2c, state, frames[0].cloud,
-                          frames[0].cloud_valid, frames[0].rng,
-                          semantic=frames[0].semantic)
-    return cfg, cam, l2c, state, frames[1:]
+REPLAYED = {"assoc.frame", "assoc.replay"}
 
 
 @pytest.fixture(autouse=True)
@@ -106,6 +40,16 @@ def empty_ring():
     timing._frames.clear()
     yield
     timing._frames.clear()
+
+
+@pytest.fixture
+def segments(monkeypatch):
+    """`process_frame`'s two segments graphed on the CPU: (front, back)."""
+    front = plain(pipeline._front, "assoc.replay")
+    back = plain(pipeline._back, "assoc.replay")
+    monkeypatch.setattr(pipeline, "_FRONT", front)
+    monkeypatch.setattr(pipeline, "_BACK", back)
+    return front, back
 
 
 def without_semantic(frames):
@@ -120,154 +64,103 @@ def run(step, cfg, cam, l2c, state, frames):
     return outs
 
 
-def graphed(g):
-    def step(cfg, cam, l2c, state, frame):
-        graph = g.get(cfg, cam, l2c, state, frame)
-        assert graph is not None
-        return graph(l2c, state, frame)
-    return step
-
-
-def assert_bits_equal(got, want):
-    a, b = fg.leaves(got), fg.leaves(want)
-    assert len(a) == len(b) >= 20
-    for x, y in zip(a, b):
-        assert x.dtype == y.dtype and x.shape == y.shape
-        assert torch.equal(x.view(BITS[x.element_size()]),
-                           y.view(BITS[y.element_size()]))
-
-
 @pytest.mark.parametrize("plane", ["semantic", "ransac_draws", "none"])
-def test_graphed_equals_eager_to_the_bit(scene, plane):
+def test_graphed_equals_eager_to_the_bit(scene, segments, plane):  # noqa: F811
     cfg, cam, l2c, state, frames = scene
     if plane == "ransac_draws":
         frames = without_semantic(frames)
     if plane == "none":  # the road pass off: `no_ground_plane` per frame
         cfg = cfg.replace(do_use_ransac_plane=False)
-    g = graphs()
     want = run(pipeline._process_frame_eager, cfg, cam, l2c, state, frames)
-    got = run(graphed(g), cfg, cam, l2c, state, frames)
-    for k, (a, b) in enumerate(zip(got, want)):
+    got = run(T.process_frame, cfg, cam, l2c, state, frames)
+    for a, b in zip(got, want):
         assert_bits_equal(a, b)
-    assert len(g.graphs) == 1
+    assert [len(s.graphs) for s in segments] == [1, 1]
     codes = torch.stack([c for _, _, c in got])
     assert (codes == 1).sum() > 100  # the cascade found depths
-    # the first frame ran eagerly and captured, the capture recording
-    # nothing; the others replayed
+    # the first frame ran eagerly and captured; the others replayed, each
+    # segment in `assoc.replay`, one frame of it
     assert len(timing._frames.ring) == 2 * len(frames)
     ring = list(timing._frames.ring)[-len(frames):]
     assert set(ring[0]) == STAGES - ({"depth.road"} if plane == "none"
                                      else set())
-    assert all(set(r) == {"assoc.frame", "assoc.replay"} for r in ring[1:])
+    assert all(set(r) == REPLAYED for r in ring[1:])
     assert timing.frame_spans()["assoc.replay"]["frames"] == len(frames) - 1
 
 
-def test_returned_state_unchanged_by_later_frames(scene):
+def test_returned_state_unchanged_by_later_frames(scene, segments):  # noqa: F811
     cfg, cam, l2c, state, frames = scene
-    g = graphs()
-    step = graphed(g)
-    state, _, _ = step(cfg, cam, l2c, state, frames[0])
-    held = step(cfg, cam, l2c, state, frames[1])
-    snapshot = fg.clone_tree(held)
+    state, _, _ = T.process_frame(cfg, cam, l2c, state, frames[0])
+    held = T.process_frame(cfg, cam, l2c, state, frames[1])
+    snapshot = graphs.clone_tree(held)
     state = held[0]
     for f in frames[2:5]:
-        state, _, _ = step(cfg, cam, l2c, state, f)
+        state, _, _ = T.process_frame(cfg, cam, l2c, state, f)
     assert_bits_equal(held, snapshot)
 
 
-def test_foreign_state_is_copied_in(scene, monkeypatch):
+def test_foreign_state_gives_the_eager_result(scene, segments):  # noqa: F811
     """The primed state after frames have run, then an older frame's
-    state: each is copied in and gives what the eager body gives from it;
-    the state the graph returned last is not copied."""
+    state: each gives what the eager body gives from it."""
     cfg, cam, l2c, primed, frames = scene
-    step = graphed(graphs())
-    outs = run(step, cfg, cam, l2c, primed, frames[:3])
-    sources = []
-    real = fg.copy_into
-    monkeypatch.setattr(fg, "copy_into", lambda d, s: (
-        sources.extend(s), real(d, s))[1])
-    last = None
-    for given, frame in ((primed, frames[3]), (outs[0][0], frames[4]),
-                         (None, frames[5])):
-        given = last[0] if given is None else given
-        sources.clear()
-        last = step(cfg, cam, l2c, given, frame)
+    outs = run(T.process_frame, cfg, cam, l2c, primed, frames[:3])
+    for given, frame in ((primed, frames[3]), (outs[0][0], frames[4])):
+        got = T.process_frame(cfg, cam, l2c, given, frame)
+        assert set(timing._frames.ring[-1]) == REPLAYED
         want = pipeline._process_frame_eager(cfg, cam, l2c, given, frame)
-        assert_bits_equal(last, want)
-        copied = any(s is given.table.track_id for s in sources)
-        assert copied == (frame is not frames[5])
+        assert_bits_equal(got, want)
 
 
-def test_signature(scene):
-    cfg, cam, l2c, state, frames = scene
-    g = graphs()
-    key = g.signature(cfg, cam, l2c, state, frames[0])
-    assert key is not None
-    nxt, _, _ = pipeline._process_frame_eager(cfg, cam, l2c, state,
-                                              frames[0])
-    assert g.signature(cfg, cam, l2c, nxt, frames[1]) == key
-    f = frames[0]
-    M = f.ids.shape[0]
-    changed = [
-        (cfg, cam, l2c, state, f._replace(ids=f.ids[:M - 1],
-                                          ids_valid=f.ids_valid[:M - 1],
-                                          uv_new=f.uv_new[:M - 1],
-                                          uv_prev=f.uv_prev[:M - 1])),
-        (cfg, cam, l2c, state, f._replace(semantic=f.semantic.to(
-            torch.int64))),
-        (cfg, cam, l2c, state, f._replace(semantic=None)),
-        (cfg, cam, l2c, state, f._replace(rng=torch.Generator())),
-        (cfg.replace(treshold_depth_max=80.0), cam, l2c, state, f),
-        (cfg, cam._replace(cx=cam.cx + 1.0), l2c, state, f),
-        (cfg, cam, l2c, state._replace(counters=state.counters.long()), f),
-    ]
-    keys = [g.signature(*args) for args in changed]
-    # TF32 on, as a later caller might switch it: another capture
-    try:
-        torch.backends.cuda.matmul.allow_tf32 = True
-        keys.append(g.signature(cfg, cam, l2c, state, f))
-    finally:
-        precision.enforce_fp32()
-    assert g.signature(cfg, cam, l2c, state, f) == key
-    assert None not in keys
-    assert len(set(keys + [key])) == len(changed) + 2
-
-
-def test_eager_where_the_graphs_do_not_apply(scene):
+@pytest.mark.parametrize("case", ["depth_segmentation", "zero_depths",
+                                  "ransac_generator"])
+def test_eager_body_where_the_segments_do_not_apply(scene, segments,  # noqa: F811
+                                                     monkeypatch, case):
     cfg, cam, l2c, state, frames = scene
     f = frames[0]
-    g = graphs()
-    assert g.signature(cfg.replace(do_use_depth_segmentation=True), cam, l2c,
-                       state, f) is None
-    assert g.signature(cfg.replace(set_all_depths_to_zero=True), cam, l2c,
-                       state, f) is None
-    # RANSAC from a generator runs eagerly; with a label image it is unused
-    gen = torch.Generator().manual_seed(3)
-    assert g.signature(cfg, cam, l2c, state,
-                       f._replace(semantic=None, rng=gen)) is None
-    assert g.signature(cfg, cam, l2c, state, f._replace(rng=gen)) is not None
-    # CPU tensors: the process's own cache is for CUDA tensors
-    assert pipeline._GRAPHS.signature(cfg, cam, l2c, state, f) is None
-    before = len(pipeline._GRAPHS.graphs)
+    if case == "depth_segmentation":
+        cfg = cfg.replace(do_use_depth_segmentation=True)
+    elif case == "zero_depths":
+        cfg = cfg.replace(set_all_depths_to_zero=True)
+    else:  # RANSAC from a generator: no label image
+        f = f._replace(semantic=None, rng=torch.Generator().manual_seed(3))
+    ran = []
+    monkeypatch.setattr(pipeline, "_process_frame_eager",
+                        lambda *a: ran.append(a) or "eager")
+    assert T.process_frame(cfg, cam, l2c, state, f) == "eager"
+    assert len(ran) == 1 and ran[0][3] is state
+    assert [len(s.graphs) for s in segments] == [0, 0]
+
+
+def test_cpu_tensors_run_the_segments_eagerly(scene):  # noqa: F811
+    """The process's own segments are for CUDA tensors: on the CPU both
+    run their eager bodies, which record the eager frame's stages."""
+    cfg, cam, l2c, state, frames = scene
+    f = frames[0]
+    assert pipeline._FRONT.signature((cfg, cam, l2c, state.table, f)) is None
+    before = [len(pipeline._FRONT.graphs), len(pipeline._BACK.graphs)]
     got = T.process_frame(cfg, cam, l2c, state, f)
-    assert len(pipeline._GRAPHS.graphs) == before
+    assert [len(pipeline._FRONT.graphs), len(pipeline._BACK.graphs)] == before
     assert set(timing._frames.ring[-1]) == STAGES
     assert_bits_equal(got, pipeline._process_frame_eager(cfg, cam, l2c,
                                                          state, f))
 
 
-def test_cache_bound(scene):
+def test_unread_rng_stays_out_of_the_key(scene, segments):  # noqa: F811
+    """With a label image RANSAC does not run: two frames that carry two
+    different generators replay under one key, equal to the eager body,
+    and neither generator is drawn from."""
     cfg, cam, l2c, state, frames = scene
-    g = graphs(bound=2)
-    f = frames[0]
-    cfgs = [cfg, cfg.replace(treshold_depth_max=80.0),
-            cfg.replace(treshold_depth_max=60.0)]
-    first = g.get(cfgs[0], cam, l2c, state, f)
-    g.get(cfgs[1], cam, l2c, state, f)
-    assert g.get(cfgs[0], cam, l2c, state, f) is first  # hit: most recent
-    g.get(cfgs[2], cam, l2c, state, f)
-    assert len(g.graphs) == 2
-    assert [k[1] for k in g.graphs] == [cfgs[0], cfgs[2]]
+    front, back = segments
+    gens = [torch.Generator().manual_seed(s) for s in (1, 2)]
+    held = [g.get_state() for g in gens]
+    for f, gen in zip(frames[:2], gens):
+        got = T.process_frame(cfg, cam, l2c, state, f._replace(rng=gen))
+        replayed = set(timing._frames.ring[-1]) == REPLAYED
+        want = pipeline._process_frame_eager(cfg, cam, l2c, state, f)
+        assert_bits_equal(got, want)
+        state = got[0]
+    assert replayed and [len(s.graphs) for s in segments] == [1, 1]
+    assert all(torch.equal(g.get_state(), h) for g, h in zip(gens, held))
 
 
 def test_copy_into_one_foreach_copy_per_dtype(monkeypatch):
@@ -280,11 +173,11 @@ def test_copy_into_one_foreach_copy_per_dtype(monkeypatch):
            torch.tensor(0.25), torch.tensor([False]),
            torch.arange(12, dtype=torch.float32).reshape(3, 4).t()]
     dst = [torch.zeros_like(t) for t in src]
-    fg.copy_into(dst, src)
+    graphs.copy_into(dst, src)
     assert sorted(map(str, calls)) == ["torch.bool", "torch.float32",
                                        "torch.int32", "torch.int64"]
     for d, s in zip(dst, src):
         assert d.dtype == s.dtype and torch.equal(d, s)
-    cloned = fg.clone_tree((src[0], (src[2], None), src[6]))
+    cloned = graphs.clone_tree((src[0], (src[2], None), src[6]))
     assert cloned[1][1] is None and torch.equal(cloned[2], src[6])
     assert cloned[0].data_ptr() != src[0].data_ptr()

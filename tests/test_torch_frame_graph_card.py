@@ -1,10 +1,11 @@
-"""`process_frame`'s CUDA graphs against its eager body on a card, at the
-benchmark cell's size (`limo_bench/configs/kitti_hdl64_tracklet_depth.json`:
-KITTI's HDL-64 scans, road labels, 2,048 tracks).  Skipped where there is
-no CUDA device.  Run on the chip, from the repo root, with
+"""`process_frame`'s two CUDA-graph segments (`graphs.Graphed`) against
+its eager body on a card, at the benchmark cell's size
+(`limo_bench/configs/kitti_hdl64_tracklet_depth.json`: KITTI's HDL-64
+scans, road labels, 2,048 tracks).  Skipped where there is no CUDA
+device.  Run on the chip, from the repo root, with
 
     python3 -m pytest -q -s -p no:cacheprovider -o addopts= --noconftest \
-        tests/test_torch_frame_graph_card.py
+        <this file>
 
 (this file imports no JAX; `-s` shows the readings each test prints).
 
@@ -37,9 +38,16 @@ def _need_card():
 
 
 def leaves(tree):
-    from mono_lidar_depth_tpu_torch.tracks import frame_graph
+    from mono_lidar_depth_tpu_torch import graphs
 
-    return frame_graph.leaves(tree)
+    return graphs.leaves(tree)
+
+
+def cached():
+    """The number of signatures each segment holds: (front, back)."""
+    from mono_lidar_depth_tpu_torch.tracks import pipeline
+
+    return len(pipeline._FRONT.graphs), len(pipeline._BACK.graphs)
 
 
 def apart(got, want):
@@ -122,10 +130,9 @@ def side_by_side(scene, frames, cfg=None, edit=lambda f: f, state=None):
 @pytest.mark.card
 def test_graphed_equals_eager_over_a_lap(scene):
     from mono_lidar_depth_tpu_torch.obs import timing
-    from mono_lidar_depth_tpu_torch.tracks import pipeline
 
     timing._frames.clear()
-    before = len(pipeline._GRAPHS.graphs)
+    before = cached()
     frames = range(1, scene.lap + 1)
     parted, outs = side_by_side(scene, frames)
     no_plane = sum(int(not bool(got[0].gp_last.ok)) for got, _ in outs)
@@ -136,7 +143,7 @@ def test_graphed_equals_eager_over_a_lap(scene):
     assert 0 < no_plane < len(frames)
     # what the first two frames returned, held through the lap
     assert [apart(*outs[k]) for k in (0, 1)] == [[], []]
-    assert len(pipeline._GRAPHS.graphs) == before + 1
+    assert cached() == (before[0] + 1, before[1] + 1)
     spans = timing.frame_spans()
     assert spans["assoc.replay"]["frames"] == len(frames) - 1
     assert spans["assoc.frame"]["frames"] == 2 * len(frames)
@@ -170,16 +177,14 @@ def test_host_ms_of_a_replay(scene):
 
 @pytest.mark.card
 def test_eager_under_an_outer_capture(scene):
-    from mono_lidar_depth_tpu_torch.tracks import pipeline
-
     T, (cfg, cam, l2c) = scene.T, scene.args()
     inp = scene.frame(3)
     want = eager()(cfg, cam, l2c, scene.primed, inp)
-    before = len(pipeline._GRAPHS.graphs)
+    before = cached()
     outer = torch.cuda.CUDAGraph()
     with torch.cuda.graph(outer):
         got = T.process_frame(cfg, cam, l2c, scene.primed, inp)
-    assert len(pipeline._GRAPHS.graphs) == before
+    assert cached() == before
     outer.replay()
     torch.cuda.synchronize()
     assert apart(got, want) == []
@@ -187,13 +192,14 @@ def test_eager_under_an_outer_capture(scene):
 
 @pytest.mark.card
 def test_ransac_draws_graphed_generator_eager(scene):
-    from mono_lidar_depth_tpu_torch.tracks import pipeline
-
+    """The pre-drawn RANSAC frame keys a front of its own; its back reads
+    what the semantic frame's back reads, and may share its graph."""
     no_labels = lambda f: f._replace(semantic=None)  # noqa: E731
-    before = len(pipeline._GRAPHS.graphs)
+    before = cached()
     parted, _ = side_by_side(scene, range(1, 9), edit=no_labels)
     assert not parted, parted
-    assert len(pipeline._GRAPHS.graphs) == before + 1
+    drawn = cached()
+    assert drawn[0] == before[0] + 1 and drawn[1] <= before[1] + 1
 
     T, (cfg, cam, l2c) = scene.T, scene.args()
     gens = [torch.Generator(device="cuda").manual_seed(5) for _ in range(2)]
@@ -205,7 +211,7 @@ def test_ransac_draws_graphed_generator_eager(scene):
         assert apart(got, want) == []
         assert torch.equal(gens[0].get_state(), gens[1].get_state())
         state = got[0]
-    assert len(pipeline._GRAPHS.graphs) == before + 1
+    assert cached() == drawn
 
 
 @pytest.mark.card
@@ -213,9 +219,8 @@ def test_tf32_switched_on_captures_anew(scene):
     """A caller that switches TF32 on (the benchmark's control does) gets
     graphs captured under it, equal to the eager body under it."""
     from mono_lidar_depth_tpu_torch import precision
-    from mono_lidar_depth_tpu_torch.tracks import pipeline
 
-    before = len(pipeline._GRAPHS.graphs)
+    before = cached()
     try:
         torch.backends.cuda.matmul.allow_tf32 = True
         torch.backends.cudnn.allow_tf32 = True
@@ -224,7 +229,7 @@ def test_tf32_switched_on_captures_anew(scene):
     finally:
         precision.enforce_fp32()
     assert not parted, parted
-    assert len(pipeline._GRAPHS.graphs) == before + 1
+    assert cached() == (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.card

@@ -38,11 +38,9 @@ SCRIPTS = ["chip_smoke.py", "profile_step.py", "gate_variants.py",
            "scripts/bench_scaling_torch.py", "scripts/multihost_demo_torch.py",
            "scripts/make_parity_record_torch.py",
            "scripts/step_split_torch.py", "scripts/card_draws_torch.py",
-           "scripts/span_cost_torch.py", "tests/reference_odometry.py",
-           "limo_bench/oracle_odometry.py"]
-# the plain references of the odometry stream: written apart from the port
-ODOMETRY_REFERENCES = ["tests/reference_odometry.py",
-                       "limo_bench/oracle_odometry.py"]
+           "scripts/span_cost_torch.py", "limo_bench/oracle_odometry.py"]
+# the plain reference of the odometry stream: written apart from the port
+ODOMETRY_REFERENCES = ["limo_bench/oracle_odometry.py"]
 
 
 def _port_modules():
@@ -76,8 +74,8 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("path", ODOMETRY_REFERENCES)
 def test_odometry_reference_stands_apart(path):
-    """Each copy of the odometry stream's reference loads neither JAX nor
-    the JAX package nor the port it judges."""
+    """The odometry stream's reference loads neither JAX nor the JAX
+    package nor the port it judges."""
     code = (
         "import importlib.util as u, sys\n"
         f"spec = u.spec_from_file_location('reference', {path!r})\n"

@@ -1,5 +1,6 @@
 """The port's tracker and visual odometry against the plain float64
-reference (`tests/reference_odometry.py`, written apart from the port),
+reference (`limo_bench/oracle_odometry.py`, written apart from the port
+and the benchmark's own check, loaded here by its path),
 on the CPU at a small size: a tracker step on a rendered textured pair,
 pose Gauss-Newton from a warm start and from identity (the retry's
 start), a 3-frame window bundle adjustment and a whole odometry tail.
@@ -10,19 +11,26 @@ fail, so that every tolerance is tight enough to see a step down in
 precision.  Each tolerance states its reason.
 """
 
+import importlib.util
 import math
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 import mono_lidar_depth_tpu_torch as T
-import reference_odometry as R
 from mono_lidar_depth_tpu_torch.io import synthetic_dataset as sd
 from mono_lidar_depth_tpu_torch.vo import ba as tba
 from mono_lidar_depth_tpu_torch.vo import pipeline as vp
 from mono_lidar_depth_tpu_torch.vo.pose import estimate_pose_gn
+
+_SPEC = importlib.util.spec_from_file_location(
+    "oracle_odometry", Path(__file__).resolve().parents[1] / "limo_bench"
+    / "oracle_odometry.py")
+R = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(R)
 
 ROUNDED = [False, True]  # the port's inputs as they are / in bfloat16
 

@@ -36,9 +36,10 @@ from torch_parity import (assert_trees_equal, jax_ransac_draws, to_numpy,
                           to_port)
 
 PKG = Path(T.__file__).resolve().parent
-PER_FRAME = sorted(str(p.relative_to(PKG)) for d in
-                   ("core", "tracks", "vo", "tracker", "eval", "obs", "dist")
-                   for p in (PKG / d).glob("*.py"))
+# the per-frame modules: those of the subpackages, and the graph replay
+PER_FRAME = sorted([str(p.relative_to(PKG)) for d in
+                    ("core", "tracks", "vo", "tracker", "eval", "obs", "dist")
+                    for p in (PKG / d).glob("*.py")] + ["graphs.py"])
 
 
 def _is_cached(fn: ast.FunctionDef) -> bool:
@@ -213,8 +214,8 @@ def test_update_tracks_seed_length(T_slots, M):
     ("tracks/pipeline.py", ["_frame_ground_plane", "_front", "_back",
                             "_process_frame_eager", "process_frame",
                             "process_sequence"]),
-    # the graphed frame: signature, copies in and out, replays
-    ("tracks/frame_graph.py", None),
+    # the CUDA-graph replay: signature, copies in and out, replays
+    ("graphs.py", None),
     ("eval/kitti_eval.py", ["_scan_depth_chunk", "_scan_vo_chunk",
                             "_chunk_frame", "_frame_rng"]),
     ("vo/pose_graph.py", ["_weight6", "_edge_residual", "_edge_lin",
@@ -243,7 +244,7 @@ def test_update_tracks_seed_length(T_slots, M):
     ("obs/launches.py", ["kernel_launches", "launches_since"]),
 ])
 def test_no_read_back_in_the_new_per_frame_code(path, functions):
-    """Region growing, the semantic plane, the graphed frame, the chunk
+    """Region growing, the semantic plane, the graph replay, the chunk
     runners, the pose graph (but `_pcg`), BA, the collective, the sharded programs, the
     bench's leg bodies (all but its serving loop) and the endurance twin's
     per-pair and per-frame functions read nothing back to the host: no `.item()`, `.tolist()`, `.cpu()`,

@@ -1,4 +1,4 @@
-"""The odometry solvers' CUDA graphs (vo/graphed.py) against their eager
+"""The odometry solvers' CUDA graphs (`graphs.Graphed`) against their eager
 bodies on a card, at the benchmark cell's size
 (`limo_bench/configs/kitti_hdl64_limo.json`: KITTI's HDL-64 scans, road
 labels, a 1226x370 image, 2,048 tracker lanes, 4,096 track slots, a
@@ -42,7 +42,7 @@ def _need_card():
 
 def apart(got, want):
     """Indices of the tensor leaves that differ in a bit."""
-    from mono_lidar_depth_tpu_torch.tracks.frame_graph import leaves
+    from mono_lidar_depth_tpu_torch.graphs import leaves
 
     a, b = leaves(got), leaves(want)
     assert len(a) == len(b) >= 6
