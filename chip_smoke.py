@@ -143,6 +143,10 @@ SOURCE = "mono_lidar_depth_tpu_torch/csrc/windows.cu"
 LK_SOURCE = "mono_lidar_depth_tpu_torch/csrc/lk_track.cu"
 GATHER_SOURCE = "mono_lidar_depth_tpu_torch/csrc/gather_neighbors.cu"
 GATE_SOURCE = "mono_lidar_depth_tpu_torch/csrc/zncc_gate.cu"
+CASCADE_SOURCE = "mono_lidar_depth_tpu_torch/csrc/depth_cascade.cu"
+# Frame pairs of the bench scene whose cascade inputs phase 3 holds the
+# cascade kernel to the plain body on (4,096 lanes each).
+CASCADE_FRAMES = 3
 # The tracker's settings on the image-fed path (the eval harness's).
 LEVELS, PATCH, LK_ITERS, MIN_DET = 4, 9, 8, 1e-4
 # The other patch sizes held against the plain version (no timing): with
@@ -179,6 +183,7 @@ EMIT_FLOOR = 0.6
 # outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+PEAK_FP64_S = 34e12  # float64 outside the tensor cores
 # Share of Success + SuccessRoad codes over all association outcomes of
 # the main-path run: 0.2892 measured on an H100 80GB HBM3 at 700 W
 # (PERF.md); the floor sits below it.
@@ -354,6 +359,57 @@ def device_ms(fn, kernel: str | None = None, reps: int = 20) -> float:
     ms = graph_ms(fn, reps)
     check(ms > 0, f"no device time for {kernel or fn}")
     return ms
+
+
+class CascadeRoutes:
+    """`depth_estimator._depth_cascade` wrapped in its module: `kernel`
+    counts the calls that the cascade kernel serves (CUDA tensors, region
+    growing off), `plain` the calls that run `_depth_cascade_plain`.  A
+    call made eagerly or while a CUDA graph captures it passes through
+    here; a replay makes none.  So the kernel's `launches` must equal
+    `kernel` (`cascade_launches`)."""
+
+    def __init__(self, de):
+        self.routed = de._depth_cascade  # the routing entry point
+        self.kernel = self.plain = 0
+        de._depth_cascade = self
+
+    def __call__(self, cfg, camera, nb1, nb2, features_uv, *args, **kw):
+        if (cfg.do_use_depth_segmentation
+                or features_uv.device.type == "cpu"):
+            self.plain += 1
+        elif features_uv.shape[0]:  # no lanes: no launch
+            self.kernel += 1
+        return self.routed(cfg, camera, nb1, nb2, features_uv, *args, **kw)
+
+
+_routes: CascadeRoutes | None = None
+
+
+def cascade_reset() -> None:
+    """The cascade kernel's launch counter and `CascadeRoutes`' counts set
+    to 0 (the wrapper installed on the first call)."""
+    global _routes
+    from mono_lidar_depth_tpu_torch.core import depth_cascade
+    from mono_lidar_depth_tpu_torch.core import depth_estimator as de
+
+    if _routes is None:
+        _routes = CascadeRoutes(de)
+    _routes.kernel = _routes.plain = 0
+    depth_cascade.launches = 0
+
+
+def cascade_launches(phase: str) -> int:
+    """The cascade kernel's launches since `cascade_reset`; fails unless
+    they equal the cascade calls on the card without region growing."""
+    from mono_lidar_depth_tpu_torch.core import depth_cascade
+
+    n = depth_cascade.launches
+    check(n == _routes.kernel,
+          f"{phase}: {n} depth_cascade launches for {_routes.kernel} "
+          f"cascade calls on the card without region growing "
+          f"({_routes.plain} calls of the plain body)")
+    return n
 
 
 def tensors_of(tree):
@@ -1191,6 +1247,119 @@ class Scene(NamedTuple):
     inputs: list  # one FrameInput per odometry step
 
 
+def same_bits(got, want) -> bool:
+    """Every tensor leaf of `got` equal to `want`'s in dtype, shape and
+    bits (NaNs included)."""
+    import torch
+    from mono_lidar_depth_tpu_torch.graphs import leaves
+
+    ints = {1: torch.uint8, 4: torch.int32, 8: torch.int64}
+    a, b = leaves(got), leaves(want)
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.contiguous().view(ints[x.element_size()]),
+                        y.contiguous().view(ints[y.element_size()]))
+        for x, y in zip(a, b))
+
+
+def cascade_bound_ms(N: int, K1: int, K2: int) -> tuple[float, float]:
+    """(by bytes, by float64 operations) of one cascade kernel call: the
+    bytes it must move (read once: uv, the valid flag, both windows'
+    points, depths and masks, the road flags, the counts, the per-lane
+    plane and its flag; written: depths and codes), and the float64
+    operations of the triangle's pair ranking alone, a lower count (per
+    pair the Gram entry's 3 multiplies and 2 adds and the squared
+    distance's 2 adds and 1 multiply; per point its squared norm)."""
+    moved = N * (8 + 1 + K1 * 17 + 4 + K2 * 18 + 4 + 16 + 1) + N * 8
+    ops = N * (8 * K1 * (K1 - 1) // 2 + 5 * K1)
+    return moved / PEAK_BYTES_S * 1e3, ops / PEAK_FP64_S * 1e3
+
+
+def phase_cascade(card: str) -> dict:
+    """The depth cascade's kernel (`core/depth_cascade.cascade_cuda`)
+    against the plain body (`depth_estimator._depth_cascade_plain`) on the
+    main path's inputs: the bench scene's frame pairs as the eager
+    association hands them to the cascade (4,096 lanes, windows 11 x 8
+    and 15 x 14, per-lane planes), to the bit in depths and codes, and
+    with `collect_debug` in the debug fields; then the kernel's device
+    time, the plain body's and the bound."""
+    import dataclasses
+
+    import torch
+    from mono_lidar_depth_tpu_torch.core import depth_cascade
+    from mono_lidar_depth_tpu_torch.core import depth_estimator as de
+    from mono_lidar_depth_tpu_torch.graphs import clone_tree
+    from mono_lidar_depth_tpu_torch.tracks import pipeline
+
+    sc = bench_scene(CASCADE_FRAMES)
+    kept = []
+    inner = de._depth_cascade
+
+    def keep(cfg, camera, *args, **kw):
+        kept.append(clone_tree(args[:6]))
+        return inner(cfg, camera, *args, **kw)
+
+    de._depth_cascade = keep
+    try:
+        tracks = prime(sc).tracklets
+        for frame in sc.inputs:
+            tracks = pipeline._process_frame_eager(
+                sc.cfg, sc.cam, sc.lidar_to_cam, tracks, frame)[0]
+    finally:
+        de._depth_cascade = inner
+    torch.cuda.synchronize()
+    check(len(kept) == CASCADE_FRAMES,
+          f"{len(kept)} cascade calls in {CASCADE_FRAMES} frames, want one "
+          f"each")
+    worst = 0.0
+    for cfg in (sc.cfg, dataclasses.replace(sc.cfg, collect_debug=True)):
+        for k, args in enumerate(kept):
+            before = depth_cascade.launches
+            got = de._depth_cascade(cfg, sc.cam, *args)
+            want = de._depth_cascade_plain(cfg, sc.cam, *args)
+            check(depth_cascade.launches == before + 1,
+                  f"frame pair {k}: the cascade did not launch its kernel "
+                  f"once")
+            d = (got.depths - want.depths).abs()
+            worst = max(worst, float(torch.where(
+                torch.isnan(d), 0.0, d).max()))
+            apart = int(((got.depths.view(torch.int32)
+                          != want.depths.view(torch.int32))
+                         | (got.codes != want.codes)).sum())
+            check(same_bits(got, want),
+                  f"frame pair {k} (collect_debug {cfg.collect_debug}): the "
+                  f"cascade kernel differs from the plain body on {apart} "
+                  f"lanes, max |depth| difference {worst}")
+    args = kept[-1]
+    N, K1 = args[0].mask.shape
+    K2 = args[1].mask.shape[1]
+    codes = torch.bincount(de._depth_cascade(sc.cfg, sc.cam, *args)
+                           .codes.long(), minlength=21).tolist()
+
+    kargs = (*args[:2], args[2].to(torch.float32).contiguous(), *args[3:])
+
+    def kernel():
+        return depth_cascade.cascade_cuda(sc.cfg, sc.cam, *kargs)
+
+    def plain():
+        return de._depth_cascade_plain(sc.cfg, sc.cam, *args)
+
+    ms, plain_ms = device_ms(kernel, "depth_cascade_kernel"), device_ms(plain)
+    wrap_ms = time_ms(kernel)
+    by_bytes, by_ops = cascade_bound_ms(N, K1, K2)
+    bound, by = max((by_bytes, "bytes"), (by_ops, "fp64 operations"))
+    log(f"phase 3 cascade: depth_cascade over {len(kept)} frame pairs of "
+        f"the bench scene, N = {N}, K = {K1} / {K2}: depths, codes and the "
+        f"debug fields equal to the plain body to the bit (codes of the "
+        f"last pair {codes}); device time kernel {ms:.4f} ms, plain body "
+        f"{plain_ms:.4f} ms, bound {bound:.5f} ms by {by} ({by_bytes:.5f} "
+        f"ms by bytes, {by_ops:.5f} ms by the pair ranking's fp64 "
+        f"operations); wrapper time (CUDA events, back-to-back calls) "
+        f"{wrap_ms:.4f} ms; no library call computes the cascade [{card}]")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "max_abs_err": worst}
+
+
 def bench_scene(frames: int = FRAMES) -> Scene:
     """bench_torch's scene (bench.py's: the reference defaults at the full
     KITTI size, the KITTI camera and extrinsics, distinct 120,000-point
@@ -1246,6 +1415,7 @@ def phase_main(card: str) -> dict:
 
     neighbors.launches = 0  # count the main path's launches only
     windows.launches = klt.launches = klt.gate_launches = 0
+    cascade_reset()
     t0 = time.perf_counter()
     state = prime(sc)
     step_ms, outs, outcomes, counters = [], [], [], []
@@ -1268,11 +1438,17 @@ def phase_main(card: str) -> dict:
     wall = time.perf_counter() - t0
     launches, crops = neighbors.launches, windows.launches
     tracker = klt.launches + klt.gate_launches
+    cascade = cascade_launches("phase 4")
     step_ms = [a.elapsed_time(b) for a, b in step_ms]
 
     check(launches == FRAMES and crops == 0 and tracker == 0,
           f"{launches} gather_neighbors, {crops} slice_windows and {tracker} "
           f"tracker-kernel launches in {FRAMES} steps, want {FRAMES}, 0, 0")
+    # Frames that draw RANSAC from a generator run the association's eager
+    # body, so the cascade kernel launches once a step.
+    check(cascade == FRAMES and _routes.plain == 0,
+          f"{cascade} depth_cascade launches and {_routes.plain} calls of the "
+          f"plain body in {FRAMES} steps, want {FRAMES} and 0")
     leaves = list(tensors_of((state, outs, counters)))
     check(all(x.is_cuda for x in leaves), "a main-path tensor left the GPU")
     for k, (R_cw, t_cw, diag) in enumerate(outs):
@@ -1308,8 +1484,9 @@ def phase_main(card: str) -> dict:
         f"{rates['success_rate_all']:.4f} (lidar-covered "
         f"{rates['success_rate_lidar_covered']:.4f}) > floor "
         f"{SUCCESS_FLOOR}, gather_neighbors launches {launches} == "
-        f"{FRAMES} (one per step), slice_windows launches {crops}, all "
-        f"tensors on {leaves[0].device}; last t_cw {t_last}")
+        f"{FRAMES} (one per step), slice_windows launches {crops}, "
+        f"depth_cascade launches {cascade} (one per step), all tensors on "
+        f"{leaves[0].device}; last t_cw {t_last}")
     log(f"phase 4 main: per-frame odometry step (CUDA events) median "
         f"{float(np.median(step_ms)):.3f} ms, first {step_ms[0]:.3f} ms, "
         f"all {[round(x, 3) for x in step_ms]}; prime + {FRAMES} steps "
@@ -1354,7 +1531,8 @@ def phase_main(card: str) -> dict:
     log(f"phase 4 main: no host sync inside the neighbor gather (sync debug "
         f"mode); one odometry step synchronizes with the host once, at "
         f"{step_syncs[0]}")
-    return {"gather_neighbors": launches, "slice_windows": crops}
+    return {"gather_neighbors": launches, "slice_windows": crops,
+            "depth_cascade": cascade}
 
 
 # --------------------------------------------------------------- phase 5
@@ -1531,6 +1709,7 @@ def phase_images(card: str, seq, render_s: float) -> dict:
     def reset_counts():
         klt.launches = klt.gate_launches = 0
         windows.launches = neighbors.launches = 0
+        cascade_reset()
 
     reset_counts()
     counts, events, inputs, outs = [], [], [], []
@@ -1555,6 +1734,7 @@ def phase_images(card: str, seq, render_s: float) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     total = launched()
+    cascade = cascade_launches("phase 6")
     check(next(frames, None) is None, "frame_inputs yielded too many frames")
 
     # counts: cumulative launches of `kernel_names` after track_frame and
@@ -1604,7 +1784,8 @@ def phase_images(card: str, seq, render_s: float) -> dict:
     log(f"phase 6 images: {steps} frames ok: per frame 1 lk_track "
         f"+ 1 zncc_gate + 0 slice_windows launches in track_frame and 1 "
         f"gather_neighbors in odometry_step (totals "
-        f"{dict(zip(kernel_names, total))}), all tensors on "
+        f"{dict(zip(kernel_names, total))}, depth_cascade {cascade}), all "
+        f"tensors on "
         f"{leaves[0].device}; emitted share "
         f"of lanes {[round(x, 4) for x in emit]} > floor {EMIT_FLOOR} from "
         f"the second frame on; ids kept frame to frame {kept}; diag "
@@ -1736,7 +1917,7 @@ def phase_images(card: str, seq, render_s: float) -> dict:
           f"card/CPU tracked positions differ by {max(uv_err):.2e} px")
     check(dR <= 1e-3 and dt <= 5e-3,
           f"card/CPU image-path poses differ: |dR| {dR:.2e}, |dt| {dt:.2e}")
-    return dict(zip(kernel_names, total))
+    return {**dict(zip(kernel_names, total)), "depth_cascade": cascade}
 
 
 # --------------------------------------------------------------- phase 7
@@ -1891,6 +2072,7 @@ def phase_sequence(card: str, seq) -> dict:
     kitti_eval._CHUNK_FRAMES = SEQ_CHUNK  # a first, a full and a tail chunk
     klt.launches = klt.gate_launches = 0
     windows.launches = neighbors.launches = 0
+    cascade_reset()
     torch.cuda.reset_peak_memory_stats()
     depth = {}
     for name, s_, c_, mode in (("ransac", seq, cfg, "ransac"),
@@ -1968,6 +2150,7 @@ def phase_sequence(card: str, seq) -> dict:
           f"resumed at frame {RESUME_AT}: stitched poses differ from the "
           f"uninterrupted run's")
     main_counts = dict(zip(kernel_names, launched()))
+    main_counts["depth_cascade"] = cascade_launches("phase 7")
     kitti_eval._CHUNK_FRAMES = old_chunk
     log(f"phase 7 sequence: eval_vo_sequence over {steps} frames in chunks "
         f"of {SEQ_CHUNK} ({ms4 / steps:.3f} ms per frame) and of 256 "
@@ -2416,6 +2599,7 @@ def phase_posegraph(card: str) -> dict:
     # ---- main path, counts from 0: VO, then both legs
     klt.launches = klt.gate_launches = 0
     windows.launches = neighbors.launches = 0
+    cascade_reset()
     closures._closure_pose_device = recorded
     closures.optimize_pose_graph = counted
     legs = {}
@@ -2486,6 +2670,7 @@ def phase_posegraph(card: str) -> dict:
     check(main_counts == dict(zip(kernel_names, (
         v + n_dir * d for v, d in zip(vo_counts, per_direction)))),
         f"phase 8 launches {main_counts}")
+    main_counts["depth_cascade"] = cascade_launches("phase 8")
     dir_ms = [ms for ms, _, _ in directions]
     log(f"phase 8 posegraph: {LOOP_FRAMES} rendered frames of the loop at "
         f"{seq.camera.width}x{seq.camera.height} ({render_s:.1f} s on the "
@@ -2713,7 +2898,7 @@ def dist_rank(rank: int, n: int, device, single: bool) -> dict:
     import torch
     import torch.distributed as tdist
     import __graft_entry_torch__ as G
-    from mono_lidar_depth_tpu_torch.core import neighbors
+    from mono_lidar_depth_tpu_torch.core import depth_cascade, neighbors
     from mono_lidar_depth_tpu_torch.dist import (
         distributed_ba, distributed_pose_graph, make_mesh,
         sharded_depth_association)
@@ -2774,12 +2959,13 @@ def dist_rank(rank: int, n: int, device, single: bool) -> dict:
         if not single:  # ---- the association, counts from 0
             step = sharded_depth_association(cfg, cam, l2c, mesh)
             draws = G.frame_draws(cfg, frames[1])
-            neighbors.launches = 0
+            neighbors.launches = depth_cascade.launches = 0
             (d, c, cnt), ms, ar, sy = measured(
                 lambda: step(*frames, draws), 1)
             out["assoc"] = dict(depths=host(d), codes=host(c),
                                 counters=host(cnt), ms=ms, all_reduce=ar,
-                                syncs=sy, launches=neighbors.launches)
+                                syncs=sy, launches=neighbors.launches,
+                                cascade=depth_cascade.launches)
 
         # ---- BA: the solve, then DIST_TIMED_ITERS iterations timed
         res = distributed_ba(cam, mesh_lm, iters=DIST_BA_ITERS)(problem)
@@ -2890,6 +3076,10 @@ def phase_dist(card: str) -> dict:
     check(launches == [1] * DIST_RANKS,
           f"gather_neighbors launches per rank {launches}, want 1 (one "
           f"frame each)")
+    cascades = [x["cascade"] for x in a]
+    check(cascades == [1] * DIST_RANKS,
+          f"depth_cascade launches per rank {cascades}, want 1 (one eager "
+          f"estimate_depths each)")
     check(np.array_equal(np.concatenate([x["codes"] for x in a]), codes),
           "sharded association codes differ from the single-process run")
     check(all(np.array_equal(x["counters"], counters) for x in a),
@@ -2941,7 +3131,8 @@ def phase_dist(card: str) -> dict:
         f"{cfg.max_features} features / {cfg.image_width}x"
         f"{cfg.image_height}, 1 frame per rank: rank 0's first call "
         f"(lazy initialization included) {row(x['ms'], x['all_reduce'], x['syncs'])}, "
-        f"gather_neighbors launches per rank {launches}; codes and counters "
+        f"gather_neighbors launches per rank {launches}, depth_cascade "
+        f"{cascades}; codes and counters "
         f"equal to the single-process run, depths within {d_depth:.1e} "
         f"[{card}]")
     log(f"phase 9 dist: BA K=8, L={lm.shape[0]} ({lm.shape[0] // DIST_RANKS} "
@@ -2967,7 +3158,8 @@ def phase_dist(card: str) -> dict:
     log(f"phase 9 dist: NCCL world of 1 ({one_s:.1f} s, spawn included): "
         f"distributed_ba and distributed_pose_graph equal group=None to the "
         f"bit; phase {time.perf_counter() - t_phase:.1f} s [{card}]")
-    return {"gather_neighbors": sum(launches)}
+    return {"gather_neighbors": sum(launches),
+            "depth_cascade": sum(cascades)}
 
 
 # -------------------------------------------------------------- phase 10
@@ -3406,11 +3598,13 @@ def phase_bench(card: str) -> dict:
 
     t_phase = time.perf_counter()
     klt.launches = klt.gate_launches = 0
+    cascade_reset()
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         result, launches = bench_torch.run("cuda", n_frames=BENCH_FRAMES,
                                            reps=1)
     tracker = klt.launches + klt.gate_launches
+    cascade = cascade_launches("phase 10")
     lines = printed.getvalue().strip().splitlines()
     check(len(lines) == 1 and json.loads(lines[0]) == result,
           f"bench_torch.run printed {len(lines)} lines, want its JSON line")
@@ -3435,7 +3629,7 @@ def phase_bench(card: str) -> dict:
         f"points, one rep ({time.perf_counter() - t_phase:.1f} s): "
         f"{json.dumps(result)}; gather_neighbors launches {launches} "
         f"(one per estimate_depths / odometry_step call), tracker kernels "
-        f"{tracker} [{card}]")
+        f"{tracker}, depth_cascade {cascade} [{card}]")
 
     # ---- fast rasterization, card against CPU, on frames 0-1 of the
     # bench's scene, from the same RANSAC draws.
@@ -3530,7 +3724,7 @@ def phase_bench(card: str) -> dict:
           f"fast mode card/CPU depths within 5e-3 on too few lanes: "
           f"{by_code}")
     log(f"phase 10 bench: {time.perf_counter() - t_phase:.1f} s [{card}]")
-    return {"gather_neighbors": gathers}
+    return {"gather_neighbors": gathers, "depth_cascade": cascade}
 
 
 def load_script(name: str):
@@ -3657,11 +3851,13 @@ def phase_endurance(card: str) -> dict:
     t0 = time.perf_counter()
     neighbors.launches = windows.launches = 0
     klt.launches = klt.gate_launches = 0
+    cascade_reset()
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         rec = e.run(ENDURANCE_FRAMES, ENDURANCE_CHECKPOINT, "cuda")
     wall = time.perf_counter() - t0
     total = kernel_launches()
+    cascade_launches("phase 11")
     lines = [json.loads(ln) for ln in printed.getvalue().splitlines()]
     stages = ["vo", "checkpoint_resume", "pose_graph",
               "pose_graph_high_drift"]
@@ -3689,7 +3885,11 @@ def phase_endurance(card: str) -> dict:
           f"endurance: backend ATE {pg['ate_posegraph_m']} m above the VO's "
           f"{pg['ate_vo_m']} m")
     # One gather, lk_track and zncc_gate per VO step (the first frame
-    # only detects), and per verification direction: two per call.
+    # only detects), and per verification direction: two per call.  The
+    # cascade kernel: once per verification direction (an eager
+    # estimate_depths); in the VO stages once per eager run of the
+    # association's back segment, none in its replays (a stage may replay
+    # a graph that an earlier one captured).
     steps = ENDURANCE_FRAMES - 1
     for stage, calls in (("vo", steps), ("checkpoint_resume", steps),
                          ("pose_graph", 2 * port["verify_calls"][
@@ -3698,12 +3898,16 @@ def phase_endurance(card: str) -> dict:
                              "pose_graph_high_drift"])):
         want = {"gather_neighbors": calls, "lk_track": calls,
                 "zncc_gate": calls, "slice_windows": 0}
-        check(port["launches"][stage] == want,
+        got = dict(port["launches"][stage])
+        cascade = got.pop("depth_cascade")
+        backend = stage.startswith("pose_graph")
+        check(got == want and (not backend or cascade == calls),
               f"endurance {stage}: launches {port['launches'][stage]}, "
-              f"want {want}")
+              f"want {want} and, in a backend leg, {calls} depth_cascade")
     log(f"phase 11 endurance: launches per stage {port['launches']} (one "
         f"gather_neighbors, lk_track and zncc_gate per VO step and per "
-        f"verification direction), total {total} [{card}]")
+        f"verification direction, one depth_cascade per verification "
+        f"direction), total {total} [{card}]")
     return total
 
 
@@ -3954,6 +4158,7 @@ def phase_parity(card: str) -> dict:
     t0 = time.perf_counter()
     neighbors.launches = windows.launches = 0
     klt.launches = klt.gate_launches = 0
+    cascade_reset()
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         rec = P.run(PARITY_FRAMES, "cuda", "chip_smoke", sweep_frames=frames,
@@ -3995,19 +4200,29 @@ def phase_parity(card: str) -> dict:
 
     # Exactly one lk_track, zncc_gate and gather_neighbors launch per
     # processed frame (two gathers with region growing) and per
-    # verification direction, two directions per call.
+    # verification direction, two directions per call.  The cascade
+    # kernel's launches (once per eager cascade call or capture, none per
+    # replay) are held to the calls that route to it (`cascade_launches`),
+    # and region growing launches it never: it runs the plain body.
     steps = PARITY_FRAMES - 1
+    cascade_launches("phase 12")
 
     def each(n, gather=None):
         return {"gather_neighbors": n if gather is None else gather,
                 "lk_track": n, "zncc_gate": n, "slice_windows": 0}
 
+    def others(launched: dict) -> dict:
+        return {k: v for k, v in launched.items() if k != "depth_cascade"}
+
     want = {name: each(2 * steps) for name, _, _ in P.MODES}
     want["region_growing"] = each(2 * steps, 4 * steps)
     want[P.FAST[0]] = each(steps)
     want["device_time"] = each(2 * steps)  # a warm run, a timed one
-    got = {k: v["launches"] for k, v in port["depth"].items()}
+    got = {k: others(v["launches"]) for k, v in port["depth"].items()}
     check(got == want, f"parity depth launches {got}, want {want}")
+    rg = port["depth"]["region_growing"]["launches"]["depth_cascade"]
+    check(rg == 0, f"parity region_growing: {rg} depth_cascade launches, "
+                   f"want 0 (the plain body)")
     want_stage = {
         "depth": each(sum(v["lk_track"] for v in want.values()),
                       sum(v["gather_neighbors"] for v in want.values())),
@@ -4015,21 +4230,21 @@ def phase_parity(card: str) -> dict:
         "pose_graph": each(2 * port["verify"]["pose_graph"]["calls"]),
         "pose_graph_high_drift": each(
             2 * port["verify"]["pose_graph_high_drift"]["calls"])}
-    check(port["launches"] == want_stage,
+    check({k: others(v) for k, v in port["launches"].items()} == want_stage,
           f"parity launches per stage {port['launches']}, want {want_stage}")
     legs = port["legs"]
     for key in ("density_sweep", "density_sweep_veto_off"):
-        check(legs[key]["launches"] == each(frames - 1),
+        check(others(legs[key]["launches"]) == each(frames - 1),
               f"parity {key} launches {legs[key]['launches']}")
     # each world: one untimed and REPS timed steps over B = 2 * max ranks
     # frames, one gather per frame on whichever rank runs it
     S = load_script("bench_scaling_torch")
     frames_run = len(PARITY_RANKS) * (S.REPS + 1) * 2 * max(PARITY_RANKS)
-    check(legs["scaling"]["launches"] == each(0, frames_run),
+    check(others(legs["scaling"]["launches"]) == each(0, frames_run),
           f"parity scaling launches {legs['scaling']['launches']}, want "
           f"{frames_run} gathers")
     log(f"phase 12 parity: launches per stage {port['launches']}, per depth "
-        f"mode {got}, sweeps {legs['density_sweep']['launches']} / "
+        f"mode {({k: v['launches'] for k, v in port['depth'].items()})}, sweeps {legs['density_sweep']['launches']} / "
         f"{legs['density_sweep_veto_off']['launches']}, scaling "
         f"{legs['scaling']['launches']} (exact) [{card}]")
 
@@ -4065,7 +4280,8 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build()
     info = dict(kernels.build_info)
-    for lib in ("windows", "lk_track", "gather_neighbors", "zncc_gate"):
+    for lib in ("windows", "lk_track", "gather_neighbors", "zncc_gate",
+                "depth_cascade"):
         kernels.library(lib)
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if "registers" in ln or "spill" in ln]
@@ -4093,6 +4309,7 @@ def main() -> int:
     lk = timed("3 lk", phase_lk, card, seq.image(0), seq.image(1))
     gather = timed("3 gather", phase_gather, card)
     gate = timed("3 gate", phase_gate, card, seq.image(0), seq.image(1))
+    cascade = timed("3 cascade", phase_cascade, card)
     launches = timed(4, phase_main, card)
     timed(5, phase_agree, card)
     img_launches = timed(6, phase_images, card, seq, render_s)
@@ -4117,11 +4334,16 @@ def main() -> int:
     # until the gate took them over; lk_track: the one launch of one
     # track_frame, both passes over all 4 levels; gather_neighbors: the
     # one launch of one odometry step; zncc_gate: the one launch of one
-    # track_frame).  library_ms: for slice_windows the indexing gather of
+    # track_frame; depth_cascade: one call of a frame pair's cascade,
+    # 4,096 lanes, the plain body's device time as plain_ms).  library_ms:
+    # for slice_windows the indexing gather of
     # the same crops on ready indices, for lk_track grid_sample doing the
     # iterations' patch sampling alone (2 x 4 x 8 calls), for gather_neighbors the four indexing gathers of
     # its crops alone (no decode), for zncc_gate two grid_sample calls
-    # doing its patch sampling alone.
+    # doing its patch sampling alone; none for depth_cascade, which no
+    # library call computes (it replaces no TPU kernel either).  Its
+    # launches: once per eager cascade call or graph capture, none per
+    # replay, on every path but region growing.
     log(json.dumps({"kernels": [
         {"name": "slice_windows", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES,
@@ -4164,7 +4386,15 @@ def main() -> int:
                       + par_launches["zncc_gate"]),
          "max_abs_err": gate["max_abs_err"], "ms": gate["ms"],
          "plain_ms": gate["plain_ms"], "bound_ms": gate["bound_ms"],
-         "bound_by": gate["bound_by"], "library_ms": gate["library_ms"]}]}))
+         "bound_by": gate["bound_by"], "library_ms": gate["library_ms"]},
+        {"name": "depth_cascade", "route": "cuda", "source": CASCADE_SOURCE,
+         "replaces": None,
+         "launches": sum(p["depth_cascade"] for p in (
+             launches, img_launches, seq_launches, pg_launches,
+             dist_launches, bench_launches, end_launches, par_launches)),
+         "max_abs_err": cascade["max_abs_err"], "ms": cascade["ms"],
+         "plain_ms": cascade["plain_ms"], "bound_ms": cascade["bound_ms"],
+         "bound_by": cascade["bound_by"], "library_ms": None}]}))
     log(f"chip_smoke: seconds per phase {seconds}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(card)

@@ -6,7 +6,9 @@ features as masked lanes, and (code, depth) is a select cascade with
 the reference's precedence; see the JAX module for the stage list and
 the documented deviations.  With region growing
 (`do_use_depth_segmentation=True`) the gather also returns the index
-plane, from which the cascade takes each feature's seed point.
+plane, from which the cascade takes each feature's seed point.  On a card
+the cascade without region growing is one hand-written kernel
+(`core/depth_cascade.py`); `_depth_cascade_plain` is its plain version.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ..config import DepthEstimatorConfig
 from ..device import Device, default_device
 from ..obs.stats import count_codes
 from ..obs.timing import span
+from .depth_cascade import cascade_cuda
 from .geometry import (SE3, PinholeCamera, dot3, plane_from_points,
                        point_plane_distance, ray_plane_intersection)
 from .histogram import filter_points_min_dist_blob, nearest_point
@@ -236,6 +239,35 @@ def depth_pair_cascade(
 
 
 def _depth_cascade(
+    cfg: DepthEstimatorConfig,
+    camera: PinholeCamera,
+    nb1: NeighborSet,
+    nb2: Optional[NeighborSet],
+    features_uv: torch.Tensor,
+    features_valid: torch.Tensor,
+    gp_coeffs_cam: torch.Tensor,  # [4] or [N, 4] camera-frame plane
+    gp_ok: torch.Tensor,  # [] or [N]
+    frame: Optional[FrameCloud] = None,
+) -> DepthEstimate:
+    """The per-feature select cascade given gathered neighbor windows:
+    `_depth_cascade_plain` for CPU tensors and for region growing (its
+    own path, which needs `frame`); the one-launch kernel
+    (`depth_cascade.cascade_cuda`) otherwise, which gives the plain body's
+    bits and raises on what it does not take."""
+    if cfg.do_use_depth_segmentation or features_uv.device.type == "cpu":
+        return _depth_cascade_plain(cfg, camera, nb1, nb2, features_uv,
+                                    features_valid, gp_coeffs_cam, gp_ok,
+                                    frame)
+    depths, codes, fields = cascade_cuda(
+        cfg, camera, nb1, nb2, features_uv.to(torch.float32).contiguous(),
+        features_valid, gp_coeffs_cam, gp_ok)
+    debug = None if fields is None else DepthDebug(nb1.count, *fields)
+    return DepthEstimate(depths=depths, codes=codes,
+                         counters=count_codes(codes, features_valid),
+                         debug=debug)
+
+
+def _depth_cascade_plain(
     cfg: DepthEstimatorConfig,
     camera: PinholeCamera,
     nb1: NeighborSet,

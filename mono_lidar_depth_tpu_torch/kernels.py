@@ -28,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_i32 = ctypes.c_int32
 
 
 class GatherScale(ctypes.Structure):
@@ -49,6 +50,29 @@ class LkLevel(ctypes.Structure):
                 ("hi_y", _cf)]
 
 
+class CascadeParams(ctypes.Structure):
+    """The depth cascade's switches and thresholds, csrc/depth_cascade.cu
+    (MldCascadeParams): window sizes, the configuration's switches as
+    ints, its float32 thresholds and the pinhole's centre and focal
+    length."""
+
+    _fields_ = [("k1", _i32), ("k2", _i32), ("count_min", _i32),
+                ("use_histogram", _i32), ("num_bins", _i32),
+                ("hist_min_count", _i32), ("bin_width", _cf),
+                ("use_pca", _i32), ("use_triangle", _i32),
+                ("check_planar", _i32),
+                ("planar_threshold", _cf), ("check_ortho", _i32),
+                ("ortho_threshold", _cf), ("depth_enabled", _i32),
+                ("depth_mode", _i32), ("depth_min", _cf), ("depth_max", _cf),
+                ("local_enabled", _i32), ("local_mode", _i32),
+                ("local_relative", _i32), ("local_value", _cf),
+                ("cut_behind", _i32), ("pca_abs_min", _cf),
+                ("pca_32_rel_max", _cf), ("pca_21_rel_min", _cf),
+                ("road_estimator", _i32), ("far_veto", _i32),
+                ("far_threshold", _cf), ("z_x_min", _cf), ("cx", _cf),
+                ("cy", _cf), ("focal", _cf), ("collect_debug", _i32)]
+
+
 # library (source stem) -> entry point -> argument types; every entry
 # point returns cudaGetLastError() as an int.
 _ENTRY_POINTS = {
@@ -62,6 +86,8 @@ _ENTRY_POINTS = {
         ctypes.POINTER(GatherScale), _ci, _vp]},
     "zncc_gate": {"mld_zncc_gate": [_vp] * 10 + [_ci] * 4 + [_cf] * 7
                   + [_vp]},
+    "depth_cascade": {"mld_depth_cascade": [_vp] * 12 + [_ci, _vp, _ci, _ci]
+                      + [_vp] * 8 + [ctypes.POINTER(CascadeParams), _vp]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

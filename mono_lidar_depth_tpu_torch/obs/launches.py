@@ -5,13 +5,14 @@ nothing); a script reads them around each of its stages."""
 
 from __future__ import annotations
 
-from ..core import neighbors, windows
+from ..core import depth_cascade, neighbors, windows
 from ..tracker import klt
 
 
 def kernel_launches() -> dict:
-    """The four counters now, by kernel name."""
+    """The five counters now, by kernel name."""
     return {"gather_neighbors": neighbors.launches,
+            "depth_cascade": depth_cascade.launches,
             "lk_track": klt.launches, "zncc_gate": klt.gate_launches,
             "slice_windows": windows.launches}
 

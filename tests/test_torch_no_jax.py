@@ -123,7 +123,7 @@ def test_new_modules_are_covered():
             "vo/pose_graph.py", "vo/closures.py", "conversions/__init__.py",
             "conversions/convert.py", "collectives.py", "dist/__init__.py",
             "dist/mesh.py", "dist/sharded.py", "dist/launch.py",
-            "obs/launches.py"} <= have
+            "obs/launches.py", "core/depth_cascade.py"} <= have
 
 
 @pytest.mark.parametrize("source", sorted(
@@ -147,13 +147,17 @@ def test_kernel_source_is_bound(source):
 
 
 def test_gate_kernel_is_bound_and_shares_the_lk_helpers():
-    """The fused gate is the fourth library; it and the LK passes take
+    """The fused gate is a library of its own (the depth cascade is the
+    fifth, with 26 arguments); it and the LK passes take
     their blend, warp sum and centre clamp from one header, which defines
     them once."""
     from mono_lidar_depth_tpu_torch import kernels
 
     assert set(kernels._ENTRY_POINTS) == {"windows", "lk_track",
-                                          "gather_neighbors", "zncc_gate"}
+                                          "gather_neighbors", "zncc_gate",
+                                          "depth_cascade"}
+    assert len(kernels._ENTRY_POINTS["depth_cascade"]
+               ["mld_depth_cascade"]) == 26
     assert len(kernels._ENTRY_POINTS["zncc_gate"]["mld_zncc_gate"]) == 22
     assert len(kernels._ENTRY_POINTS["lk_track"]["mld_lk_track"]) == 13
     header = (PKG / "csrc" / "lk_common.cuh").read_text()

@@ -242,6 +242,8 @@ def test_update_tracks_seed_length(T_slots, M):
     ("../scripts/make_parity_record_torch.py", ["__call__", "inject_drift"]),
     # the launch counters the twins read around each stage
     ("obs/launches.py", ["kernel_launches", "launches_since"]),
+    # the depth cascade's kernel wrapper, inside the association's graph
+    ("core/depth_cascade.py", None),
 ])
 def test_no_read_back_in_the_new_per_frame_code(path, functions):
     """Region growing, the semantic plane, the graph replay, the chunk
